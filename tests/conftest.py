@@ -26,6 +26,11 @@ def pytest_configure(config):
         "chaos: fault-injection tests (drain/preemption/kill harnesses). "
         "Fast chaos tests stay inside the tier-1 'not slow' set; stress "
         "variants are additionally marked slow.")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's hand-written "
+        "kernels); skips without one. On the card: "
+        "python -m pytest -m cuda tests/test_torch_*.py")
 
 
 @pytest.fixture(scope="module")
