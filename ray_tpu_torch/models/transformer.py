@@ -10,21 +10,34 @@ parameter names, shapes and numerics, so weights carry across unchanged
 - the layer stack is a Python loop over the stacked weights (the JAX
   package scans);
 - activations in ``cfg.dtype``, every weight cast to it at use (``_w``);
-  norms, RoPE and logits in f32.
+  norms, RoPE and logits in f32;
+- remat is non-reentrant ``torch.utils.checkpoint`` around each layer, one
+  way for each JAX ``jax.checkpoint`` policy (``layer_scan_body``): "full"
+  is plain checkpointing, "dots"/"dots_attn" replay the projection outputs
+  saved in the forward (``_SavedDots``), "min" is a selective-checkpoint
+  policy, and "half_*" checkpoints half the stack;
+- the loss (``loss_fn``) in both token conventions, unfused or through the
+  chunked fused lm-head + CE (``ops/fused_ce.py``).
 
-Loss, remat and the MoE layer are not ported yet.
+The MoE layer is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention
+from ..ops.fused_ce import fused_next_token_loss
 from .quantize import maybe_dequant
 
 Params = Dict[str, Any]
@@ -177,11 +190,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def iter_layers(params: Params) -> Iterator[Params]:
-    """One dict of per-layer views per layer of the stacked weights."""
-    stacked = params["layers"]
-    n = next(iter(stacked.values())).shape[0]
+    """One dict of per-layer views per layer of the stacked weights.
+
+    The views come from ``unbind``: its backward stacks the L layer
+    gradients once. Indexing ``w[i]`` would scatter each layer's gradient
+    into a zero [L, ...] tensor and add it, L times over."""
+    unbound = {k: w.unbind(0) for k, w in params["layers"].items()}
+    n = len(next(iter(unbound.values())))
     for i in range(n):
-        yield {k: w[i] for k, w in stacked.items()}
+        yield {k: ws[i] for k, ws in unbound.items()}
 
 
 def _norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -215,6 +232,74 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# What the remat policies read while a layer runs, per thread (engines
+# prefill on their callers' threads; autograd recomputes on its own):
+# ``name``, the value the ops running now compute (the JAX package's
+# ``checkpoint_name``), and ``dots``, the _SavedDots of a "dots" layer.
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the ops run inside as computing the value ``name``."""
+    prev = getattr(_remat, "name", None)
+    _remat.name = name
+    try:
+        yield
+    finally:
+        _remat.name = prev
+
+
+class _SavedDots:
+    """The projection outputs of one checkpointed layer call under "dots":
+    recorded in the forward, handed back in order when the backward
+    recomputes the layer, so only the work between products runs again."""
+
+    def __init__(self):
+        self.outs = []
+        self.replay: Optional[int] = None  # next index while replaying
+
+
+def _matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    d = h.shape[-1]
+    out = h.reshape(-1, d) @ w.reshape(d, -1)
+    return out.reshape(*h.shape[:-1], *w.shape[1:])
+
+
+class _SavedDot(torch.autograd.Function):
+    """``_matmul`` whose output comes from a _SavedDots on recompute."""
+
+    @staticmethod
+    def forward(ctx, h, w, store):
+        ctx.save_for_backward(h, w)
+        if store.replay is None:
+            out = _matmul(h, w)
+            store.outs.append(out.detach())
+            return out
+        out = store.outs[store.replay]
+        store.replay += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        d = h.shape[-1]
+        g2 = g.reshape(-1, w[0].numel())
+        gh = (g2 @ w.reshape(d, -1).T).reshape(h.shape)
+        gw = (h.reshape(-1, d).T @ g2).reshape(w.shape)
+        return gh, gw, None
+
+
+def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A projection of the layer, h [..., d] @ w [d, ...] (a product with
+    no batch dimension: what the "dots" policies save)."""
+    store = getattr(_remat, "dots", None)
+    if store is None:
+        return _matmul(h, w)
+    return _SavedDot.apply(h, w, store)
+
+
 def _w(layer: Params, name: str, cfg: TransformerConfig) -> torch.Tensor:
     """Weight access for the layer helpers: compute-dtype view,
     dequantizing int8 weight-only params when a scale sibling is present."""
@@ -225,11 +310,15 @@ def _qkv_proj(cfg: TransformerConfig, h: torch.Tensor, layer: Params,
               positions: torch.Tensor):
     """Projection + rope shared by the forward and KV-cache decode."""
     if "wqkv" in layer:
-        qkv = torch.einsum("bsd,dcnh->bscnh", h, _w(layer, "wqkv", cfg))
+        w = _w(layer, "wqkv", cfg)
+        with checkpoint_name("qkv_proj"):
+            qkv = _proj(h, w)                                # [B,S,3,H,hd]
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = torch.einsum("bsd,dnh->bsnh", h, _w(layer, "wq", cfg))
-        kv = torch.einsum("bsd,dcnh->bscnh", h, _w(layer, "wkv", cfg))
+        q = _proj(h, _w(layer, "wq", cfg))                   # [B,S,H,hd]
+        w = _w(layer, "wkv", cfg)
+        with checkpoint_name("qkv_proj"):
+            kv = _proj(h, w)                                 # [B,S,2,KVH,hd]
         k, v = kv[:, :, 0], kv[:, :, 1]
     if cfg.positional == "rope":
         q = _rope(q, positions, cfg.rope_theta)
@@ -242,11 +331,16 @@ def _mlp_block(cfg: TransformerConfig, h: torch.Tensor,
     """Post-attention FFN (swiglu / tanh-gelu), shared with decode."""
     _require_dense(cfg)
     if cfg.activation == "swiglu":
-        gu = torch.einsum("bsd,dcf->bscf", h, _w(layer, "w_gate_up", cfg))
+        w = _w(layer, "w_gate_up", cfg)
+        with checkpoint_name("gate_up"):
+            gu = _proj(h, w)                                 # [B,S,2,F]
         act = F.silu(gu[:, :, 0]) * gu[:, :, 1]
-        return act @ _w(layer, "w_down", cfg)
-    act = F.gelu(h @ _w(layer, "w_up", cfg), approximate="tanh")
-    return act @ _w(layer, "w_down", cfg)
+        return _proj(act, _w(layer, "w_down", cfg))
+    w = _w(layer, "w_up", cfg)
+    with checkpoint_name("gate_up"):
+        up = _proj(h, w)
+    act = F.gelu(up, approximate="tanh")
+    return _proj(act, _w(layer, "w_down", cfg))
 
 
 def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
@@ -256,7 +350,7 @@ def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     h = _norm(x, layer["attn_norm"], layer.get("attn_norm_b"), cfg.norm)
     q, k, v = _qkv_proj(cfg, h, layer, positions)
     o = attention(q, k, v, causal=True)
-    x = x + o.reshape(B, S, H * hd) @ _w(layer, "wo", cfg)
+    x = x + _proj(o.reshape(B, S, H * hd), _w(layer, "wo", cfg))
     h = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
     x = x + _mlp_block(cfg, h, layer)
     if return_kv:
@@ -279,6 +373,74 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _save_all_but_projections(ctx, op, *args, **kwargs):
+    """``save_anything_except_these_names("qkv_proj", "gate_up")``."""
+    if getattr(_remat, "name", None) in ("qkv_proj", "gate_up"):
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _checkpointed_with_saved_dots(body):
+    """``dots_with_no_batch_dims_saveable``: the whole layer is recomputed
+    in the backward except its projections (``_proj``), whose outputs are
+    kept from the forward. The flash forward is no product, so it runs
+    again, as the Pallas call does under this policy in the JAX package.
+    Done here and not by a selective-checkpoint policy, which would run
+    every op of the layer through a Python dispatch mode."""
+    def run(store, x, layer):
+        prev = getattr(_remat, "dots", None)
+        _remat.dots = store
+        try:
+            return body(x, layer)
+        finally:
+            _remat.dots = prev
+            store.replay = 0  # the next run is the backward's recompute
+
+    def remat_body(x, layer):
+        return checkpoint(run, _SavedDots(), x, layer, use_reentrant=False)
+
+    return remat_body
+
+
+def layer_scan_body(cfg: TransformerConfig, positions: torch.Tensor
+                    ) -> Callable[[torch.Tensor, Params], torch.Tensor]:
+    """The (remat-wrapped) per-layer body ``(x, layer) -> x``. With
+    ``cfg.remat`` the layer runs under non-reentrant checkpointing:
+    "full" recomputes the whole layer in the backward; "dots" and
+    "dots_attn" keep the projections' outputs; "min" keeps everything but
+    the qkv and gate/up projections (a selective-checkpoint policy).
+    "dots_attn" keeps what "dots" keeps: the JAX package also saves the
+    attention output there, but its backward still re-runs the flash
+    forward for lse, which carries no name, and the port's K1 gives o and
+    lse together; so both launch K1 twice per layer and step, as the JAX
+    package's gradient program does (tests/test_torch_train.py).
+    "half_*" is resolved by ``backbone_with_aux``; any other name
+    raises."""
+    def body(x, layer):
+        return _layer_body(cfg, x, layer, positions)
+
+    if not cfg.remat:
+        return body
+    policy = cfg.remat_policy
+    if policy in ("dots", "dots_attn"):
+        return _checkpointed_with_saved_dots(body)
+    if policy == "full":
+        kw = {}
+    elif policy == "min":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_all_but_projections)}
+    else:
+        raise ValueError(
+            f"unhandled remat_policy {policy!r} at the layer level "
+            f"(full | dots | dots_attn | min; half_* composes only through "
+            f"backbone_with_aux)")
+
+    def remat_body(x, layer):
+        return checkpoint(body, x, layer, use_reentrant=False, **kw)
+
+    return remat_body
+
+
 def backbone_with_aux(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -286,8 +448,22 @@ def backbone_with_aux(params: Params, tokens: torch.Tensor,
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = _positions(B, S, tokens.device)
-    for layer in iter_layers(params):
-        x = _layer_body(cfg, x, layer, positions)
+    layers = list(iter_layers(params))
+    if cfg.remat and cfg.remat_policy.startswith("half"):
+        # Mixed remat: the first half of the stack checkpoints (its saved
+        # activations would live longest), the second keeps activations.
+        inner = dataclasses.replace(
+            cfg, remat_policy="dots" if cfg.remat_policy == "half_dots"
+            else "full")
+        plain = dataclasses.replace(cfg, remat=False)
+        half = cfg.n_layers // 2
+        stages = [(layer_scan_body(inner, positions), layers[:half]),
+                  (layer_scan_body(plain, positions), layers[half:])]
+    else:
+        stages = [(layer_scan_body(cfg, positions), layers)]
+    for body, stage in stages:
+        for layer in stage:
+            x = body(x, layer)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -320,3 +496,90 @@ def forward(params: Params, tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """tokens [B, S] integer -> logits [B, S, V] (f32)."""
     return forward_with_aux(params, tokens, cfg)[0]
+
+
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Mean CE of logits [B,S,V] vs targets [B,S] over positions where
+    ``valid`` (f32 weights) is nonzero: logits[target] - logsumexp, with
+    no second [B,S,V] log-softmax tensor."""
+    lse = torch.logsumexp(logits, dim=-1)
+    at_target = logits.gather(-1, targets.long()[..., None])[..., 0]
+    ll = at_target - lse
+    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def shift_targets_valid(tokens: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None):
+    """targets/valid for the shift_inputs convention: tokens is [B,S+1],
+    the forward ran on tokens[:, :-1]."""
+    targets = tokens[:, 1:]
+    valid = torch.ones(targets.shape, dtype=torch.float32,
+                       device=tokens.device)
+    if mask is not None:
+        valid = valid * mask[:, 1:].float()
+    return targets, valid
+
+
+def inplace_targets_valid(batch: Dict[str, torch.Tensor]):
+    """targets/valid for the in-place convention (final position masked)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    targets = torch.cat(
+        [tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype, device=dev)],
+        dim=1)
+    valid = torch.cat(
+        [torch.ones((B, S - 1), dtype=torch.float32, device=dev),
+         torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1)
+    mask = batch.get("mask")
+    if mask is not None:
+        shifted = torch.cat(
+            [mask[:, 1:], torch.zeros((B, 1), dtype=mask.dtype, device=dev)],
+            dim=1)
+        valid = valid * shifted.float()
+    return targets, valid
+
+
+def next_token_loss(logits: torch.Tensor,
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token CE over logits [B,S,V] in the in-place convention."""
+    targets, valid = inplace_targets_valid(batch)
+    return token_cross_entropy(logits, targets, valid)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig, *,
+            shift_inputs: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy (the JAX ``loss_fn``).
+
+    - in-place (default): tokens [B,S]; the forward runs on the full
+      sequence and the final position is masked out of the loss;
+    - shift_inputs: tokens [B,S+1]; forward on tokens[:, :-1], targets
+      tokens[:, 1:], every position valid (the high-throughput convention:
+      the model runs at the power-of-two length S).
+    ``batch["mask"]``, if given, weights positions as in the reference.
+    With ``cfg.fused_ce`` the head and CE go through ``ops/fused_ce.py``.
+    An MoE config raises NotImplementedError in the layer until the MoE
+    layer is ported; its aux term is then added as in the reference.
+    """
+    tokens = batch["tokens"]
+    if cfg.fused_ce:
+        tokens_in = tokens[:, :-1] if shift_inputs else tokens
+        x, aux = backbone_with_aux(params, tokens_in, cfg)
+        x, head = final_hidden_and_head(params, x, cfg)
+        if shift_inputs:
+            targets, valid = shift_targets_valid(tokens, batch.get("mask"))
+        else:
+            targets, valid = inplace_targets_valid(batch)
+        loss = fused_next_token_loss(x.to(cfg.dtype), head, targets, valid)
+    elif shift_inputs:
+        logits, aux = forward_with_aux(params, tokens[:, :-1], cfg)
+        targets, valid = shift_targets_valid(tokens, batch.get("mask"))
+        loss = token_cross_entropy(logits, targets, valid)
+    else:
+        logits, aux = forward_with_aux(params, tokens, cfg)
+        loss = next_token_loss(logits, batch)
+    if cfg.moe_num_experts:
+        loss = loss + cfg.moe_aux_coef * aux
+    return loss

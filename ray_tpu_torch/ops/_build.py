@@ -2,7 +2,8 @@
 
 Each kernel source under ``ops/csrc/`` exposes a plain C function (no
 PyTorch headers, so `nvcc` takes seconds, not minutes). It is compiled for
-Hopper (``sm_90a``) with ``nvcc -shared`` into
+Hopper (``sm_90a``), one ``nvcc -c`` per source at once, and linked with
+``nvcc -shared`` into
 ``ray_tpu_torch/_build/<name>/<name>-<hash>.so`` the first time a wrapper
 needs it and loaded with ``ctypes``; the wrapper passes raw device pointers,
 strides and PyTorch's current stream. The file name carries a hash of the
@@ -48,14 +49,30 @@ def _build(name: str, sources: Sequence[Path]) -> Path:
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
     # Build under a per-process name, then rename: a process that races
-    # this one never loads a half-written library.
+    # this one never loads a half-written library. One nvcc per source,
+    # all started together, then one link.
     tmp = build_dir / f".{out.name}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), *[str(s) for s in sources]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}:\n{proc.stderr[-4000:]}")
+    nvcc = _nvcc()
+    objs = [build_dir / f".{s.stem}.{os.getpid()}.o" for s in sources]
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xcompiler", "-fPIC", "-c", "-o", str(o),
+             str(s)], stderr=subprocess.PIPE, text=True)
+            for s, o in zip(sources, objs)]
+        errs = [p.communicate()[1] for p in procs]  # wait for every one
+        for s, p, err in zip(sources, procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) building "
+                                   f"{s.name}:\n{err[-4000:]}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) linking "
+                               f"{name}:\n{proc.stderr[-4000:]}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

@@ -1,21 +1,25 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
-The counterpart of the JAX package's Pallas forward
-(``ray_tpu/ops/flash_attention.py``: ``_fwd_kernel`` launched by
-``_flash_fwd``). The kernel is CUDA C++ in ``csrc/flash_fwd.cu`` (design
-and bound in its header note), built for ``sm_90a`` at first use.
+The counterpart of the JAX package's Pallas kernels
+(``ray_tpu/ops/flash_attention.py``): the forward ``_fwd_kernel`` (K1, in
+``csrc/flash_fwd.cu``) and the backward ``_dq_kernel`` (K2) and
+``_dkv_kernel`` (K3, both in ``csrc/flash_bwd.cu``). Each is CUDA C++ built
+for ``sm_90a`` at first use; design and bound are in each source's header.
 
-- :func:`flash_attention_fwd` is the wrapper: for CUDA tensors it launches
-  the kernel or raises, for CPU tensors it runs the plain version. It
-  counts its launches in ``flash_attention_fwd.launches``.
-- :func:`flash_attention_fwd_plain` is the same function in plain PyTorch,
-  computed in f32 with the same masking and ``l == 0`` guard.
-- :func:`flash_attention` is the public entry in model layout [B, S, H, D].
+- :func:`flash_attention_fwd`, :func:`flash_bwd_dq` and
+  :func:`flash_bwd_dkv` are the wrappers: for CUDA tensors they launch
+  their kernel or raise, for CPU tensors they run the plain version. Each
+  counts its launches in ``<wrapper>.launches``.
+- ``*_plain`` are the same functions in plain PyTorch, in f32, with the
+  same masks.
+- :func:`flash_bwd_core` is the backward given the row statistics lse and
+  delta from outside (ring attention passes global ones through it).
+- :func:`flash_attention` is the public, differentiable entry in model
+  layout [B, S, H, D]: a ``torch.autograd.Function`` whose forward is K1
+  and whose backward is K2 and K3, as the JAX ``custom_vjp``.
 
-All functions take the model layout [B, S, H, D] / [B, S, KVH, D] and
-return ``o`` in q's layout and dtype and ``lse`` as [B, H, S, 1] f32 (the
-layout of the JAX ``_flash_fwd``). The backward kernels of the JAX package
-are not ported yet.
+All functions take the model layout [B, S, H, D] / [B, S, KVH, D]; lse and
+delta are [B, H, S, 1] f32 (the layout of the JAX ``_flash_fwd``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 
 _NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-_LIB_NAME = "rtpu_flash_fwd"
+_LIB_NAME = "rtpu_flash"
 # Engines prefill on their callers' threads: the launch count is shared.
 _count_lock = threading.Lock()
 
@@ -72,20 +76,24 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _kernel_library() -> ctypes.CDLL:
+    """K1, K2 and K3 in one library, built (one nvcc per source, at once)
+    and loaded at first use."""
     from ._build import load_library
 
-    lib = load_library(_LIB_NAME, ["flash_fwd.cu"])
-    fn = lib.rtpu_flash_fwd_bf16
-    if fn.argtypes is None:
-        ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = ([vp] * 5 + [ctypes.c_int] * 5 + [ll] * 12
-                       + [ctypes.c_float, ctypes.c_int, vp])
-        fn.restype = ctypes.c_int
+    lib = load_library(_LIB_NAME, ["flash_fwd.cu", "flash_bwd.cu"])
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    for fn, n_ptr, n_strides in ((lib.rtpu_flash_fwd_bf16, 5, 12),
+                                 (lib.rtpu_flash_bwd_dq_bf16, 7, 15),
+                                 (lib.rtpu_flash_bwd_dkv_bf16, 8, 18)):
+        if fn.argtypes is None:
+            fn.argtypes = ([vp] * n_ptr + [i] * 5 + [ll] * n_strides
+                           + [ctypes.c_float, i, vp])
+            fn.restype = i
     return lib
 
 
 def build() -> None:
-    """Build and load the kernel now (otherwise done at the first launch)."""
+    """Build and load K1, K2 and K3 now (otherwise done at first launch)."""
     _kernel_library()
 
 
@@ -123,7 +131,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{SUPPORTED_HEAD_DIMS}, got {D}")
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -137,16 +145,225 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err}")
     with _count_lock:
         flash_attention_fwd.launches += 1
-    return o, lse.unsqueeze(-1)
+    return o, lse
 
 
 flash_attention_fwd.launches = 0
 
 
+# ---------------------------------------------------------------- backward
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check_shapes(q, k, v)
+    B, S, H, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (B, H, S, 1):
+            raise ValueError(f"{name} must be [B, H, S, 1] = "
+                             f"{(B, H, S, 1)}, got {tuple(x.shape)}")
+
+
+def _plain_p_ds(q, k, v, do, lse, delta, scale, causal):
+    """p = exp(scale q k^T + mask - lse) and ds = p (do v^T - delta) scale,
+    in f32 [B, H, S, S], with q/do/k (k broadcast over the GQA group) in
+    f32 [B, H, S, D]."""
+    S, H = q.shape[1], q.shape[2]
+    group = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(s - lse.float())
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.float()) * scale
+    return qf, dof, kf, p, ds
+
+
+def _sum_group(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, H, S, D] per query head -> [B, S, KVH, D] summed over groups."""
+    B, H, S, D = x.shape
+    return x.reshape(B, kvh, H // kvh, S, D).sum(dim=2).transpose(1, 2)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float,
+                       causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of K2: dq [B,S,H,D] in q.dtype, f32 inside."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _, _, kf, _, ds = _plain_p_ds(q, k, v, do, lse, delta, scale, causal)
+    return torch.matmul(ds, kf).transpose(1, 2).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float,
+                        causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: (dk, dv) [B,S,KVH,D], f32 inside,
+    summed over each kv head's group of query heads."""
+    _check_bwd(q, k, v, do, lse, delta)
+    qf, dof, _, p, ds = _plain_p_ds(q, k, v, do, lse, delta, scale, causal)
+    kvh = k.shape[2]
+    dk = _sum_group(torch.matmul(ds.transpose(-1, -2), qf), kvh)
+    dv = _sum_group(torch.matmul(p.transpose(-1, -2), dof), kvh)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale: float,
+                              causal: bool):
+    """Plain PyTorch version of the whole backward: (dq, dk, dv)."""
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+def _bwd_on_kernel(name, q, k, v, do, lse, delta) -> bool:
+    """True for CUDA tensors the kernels take, False for CPU tensors (the
+    plain version); raises for anything else."""
+    _check_bwd(q, k, v, do, lse, delta)
+    devices = {x.device for x in (q, k, v, do, lse, delta)}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: all inputs must be on one device, got "
+                         f"{sorted(map(str, devices))}")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype == torch.bfloat16):
+        raise TypeError(f"{name} takes bfloat16 q/k/v/do, got {q.dtype}/"
+                        f"{k.dtype}/{v.dtype}/{do.dtype}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 lse/delta, got {lse.dtype}/"
+                        f"{delta.dtype}")
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name} supports head_dim in "
+                         f"{SUPPORTED_HEAD_DIMS}, got {q.shape[-1]}")
+    return True
+
+
+def _raise_on_error(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """dq [B,S,H,D]. CUDA tensors launch K2 (bf16, D in 32/64/128) or
+    raise; CPU tensors take the plain version."""
+    if not _bwd_on_kernel("flash_bwd_dq", q, k, v, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    B, S, H, D = q.shape
+    q, k, v, do = map(_kernel_operand, (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _kernel_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtpu_flash_bwd_dq_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, S, H, k.shape[2], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *dq.stride()[:3],
+            float(scale), int(bool(causal)), stream)
+    _raise_on_error(err, "flash backward dq")
+    with _count_lock:
+        flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B,S,KVH,D]. CUDA tensors launch K3 (bf16, D in 32/64/128)
+    or raise; CPU tensors take the plain version."""
+    if not _bwd_on_kernel("flash_bwd_dkv", q, k, v, do, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    q, k, v, do = map(_kernel_operand, (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.empty((B, S, KVH, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, S, KVH, D), dtype=v.dtype, device=q.device)
+    lib = _kernel_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtpu_flash_bwd_dkv_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, H, KVH, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(scale), int(bool(causal)), stream)
+    _raise_on_error(err, "flash backward dk/dv")
+    with _count_lock:
+        flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_core(q, k, v, do, lse, delta, *, scale: float, causal: bool):
+    """The backward given externally supplied row statistics (JAX
+    ``flash_bwd_core``): lse/delta [B,H,S,1] may come from a global softmax,
+    since p is recomputed as exp(s - lse). Returns (dq, dk, dv)."""
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * o) in f32, [B,S,H,D] -> [B,H,S,1] (the JAX
+    ``_flash_bwd``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).unsqueeze(-1)
+
+
+# ---------------------------------------------------------------- public
+
+# K1 as an operator the dispatcher sees: a selective-checkpoint policy
+# (models/transformer.py) can then save its outputs instead of launching
+# it again in the backward. A ctypes call alone is invisible to it.
+@torch.library.custom_op(
+    "ray_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal)"
+           " -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, scale, causal):
+    return flash_attention_fwd(q, k, v, scale, causal)
+
+
+_FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_fwd.default
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1, saving q, k, v, o and lse; backward K2 and K3 (the JAX
+    ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = _FLASH_FWD_OP(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = g.to(q.dtype)
+        dq, dk, dv = flash_bwd_core(q, k, v, do, lse, attention_delta(do, o),
+                                    scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention in model layout [B, S, H, D] -> o [B, S, H, D]."""
+    """Differentiable flash attention in model layout [B, S, H, D]."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    o, _ = flash_attention_fwd(q, k, v, scale, causal)
-    return o
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal))

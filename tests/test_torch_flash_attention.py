@@ -16,6 +16,8 @@ from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu_torch.ops import attention as tatt
 from ray_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(2)
+
 ATOL = RTOL = 2e-5
 
 

@@ -19,6 +19,8 @@ from ray_tpu_torch import convert
 from ray_tpu_torch.models import generate as tgen
 from ray_tpu_torch.models.configs import llama_tiny as tllama_tiny
 
+torch.set_num_threads(2)
+
 # ray_tpu.models re-exports a function named `generate`, shadowing the
 # module as an attribute of the package.
 jgen = importlib.import_module("ray_tpu.models.generate")

@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(2)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""

@@ -13,6 +13,8 @@ import torch
 
 from ray_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(2)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -69,3 +71,82 @@ def test_flash_forward_kernel_refuses_what_it_does_not_take():
     q = torch.zeros(1, 16, 2, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_fwd(q, q, q, 0.1, True)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _bwd_inputs(seed, B, S, H, KVH, D, causal, dev, fused=False):
+    """bf16 q/k/v/do (with ``fused``, q/k/v are views of one [B, S, H + 2
+    KVH, D] projection) and lse/delta from the plain forward."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, torch.bfloat16)
+
+    if fused:
+        qkv = t((B, S, H + 2 * KVH, D))
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KVH], qkv[:, :, H + KVH:]
+    else:
+        q, k, v = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D))
+    do = t((B, S, H, D))
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, D ** -0.5, causal)
+    return q, k, v, do, lse, tfa.attention_delta(do, o)
+
+
+@pytest.mark.parametrize("S,H,KVH,D,fused", [
+    (96, 16, 16, 64, False), (192, 32, 8, 128, False),
+    (100, 4, 2, 32, False), (130, 8, 2, 64, True)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_match_plain(causal, S, H, KVH, D, fused):
+    """K2 and K3 in bf16 against the plain f32 backward on the same
+    inputs. Tolerance: relative L2 2e-2 per tensor (p and ds are rounded to
+    bf16 before their products, as on the TPU; the plain version keeps
+    them in f32)."""
+    dev = _card()
+    args = _bwd_inputs(S + D, 2, S, H, KVH, D, causal, dev, fused)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    got = tfa.flash_bwd_core(*args, scale=D ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa.flash_attention_bwd_plain(*args, D ** -0.5, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2e-2, (name, _rel_l2(g, w))
+
+
+def test_flash_attention_autograd_on_card_matches_reference():
+    """The autograd path on the card (K1 forward, K2/K3 backward) against
+    the plain reference attention's autograd, both in bf16. Tolerance:
+    relative L2 2e-2 per gradient."""
+    from ray_tpu_torch.ops.attention import reference_attention
+
+    dev = _card()
+    q, k, v = (x.requires_grad_(True)
+               for x in _qkv(5, 2, 200, 8, 2, 64, dev))
+    do = torch.randn(2, 200, 8, 64, device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    counts = (tfa.flash_attention_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    want = torch.autograd.grad(reference_attention(q, k, v), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) <= 2e-2
+
+
+def test_flash_backward_kernels_refuse_what_they_do_not_take():
+    dev = _card()
+    q = torch.zeros(1, 16, 2, 64, device=dev)
+    lse = torch.zeros(1, 2, 16, 1, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_bwd_dq(q, q, q, q, lse, lse, 0.1, True)
+    qb = q.bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        tfa.flash_bwd_dkv(qb, qb, qb, qb, lse.bfloat16(), lse, 0.1, True)

@@ -22,6 +22,8 @@ from ray_tpu_torch.models.configs import llama_tiny as tllama_tiny
 from ray_tpu_torch.serve import llm_engine as tengine
 from ray_tpu_torch.serve.llm_engine import ContinuousBatchingEngine
 
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def setup():

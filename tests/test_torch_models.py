@@ -18,6 +18,8 @@ from ray_tpu_torch.models import configs as tconfigs
 from ray_tpu_torch.models import quantize as tquant
 from ray_tpu_torch.models import transformer as ttfm
 
+torch.set_num_threads(2)
+
 ATOL = RTOL = 1e-4
 
 
