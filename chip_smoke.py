@@ -15,9 +15,10 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    them.
 2. ``kernel_check`` (twice): K1, then K2 and K3, against their plain
    PyTorch versions on the card, in bf16, on seeded numpy inputs: causal
-   and not, MHA and GQA, sequence lengths with a ragged tail, q/k/v as
-   strided views of a fused projection, every prefill bucket the serving
-   slice runs and the training shape.
+   and not, MHA and GQA, sequence lengths with a ragged tail and below one
+   tile, q/k/v as strided views of a fused projection and as views whose
+   rows past S hold NaN, every prefill bucket the serving slice runs and
+   the training shape.
 3. ``slice``: the main path. Llama-3-8B at full width and depth (bf16
    weights, random from a seed) behind a ``ContinuousBatchingEngine`` with
    4 slots, ticking on its ``run_forever`` thread; 6 greedy requests, the
@@ -40,11 +41,11 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 6. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
    batch 2, seq 1024 with the kernels (bf16), with the plain attention
    (bf16) and with the plain attention in f32, compared per leaf.
-7. ``kernel_time``: K1, K2 and K3 at the serving and training shapes
-   beside their plain versions, the SDPA forward or backward (the
-   yardstick, never used by the port: device time on contiguous copies,
-   each backend that takes them pinned in turn, the fastest reported) and
-   their bounds.
+7. ``kernel_time``: K1 (with its achieved TFLOP/s), K2 and K3 at the
+   serving and training shapes beside their plain versions, the SDPA
+   forward or backward (the yardstick, never used by the port: device time
+   on contiguous copies, each backend that takes them pinned in turn, the
+   fastest reported) and their bounds.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
@@ -66,7 +67,9 @@ SEED = 0
 # and 64, so every attach shape from the smallest bucket to a full prompt.
 PROMPT_LENS = (5, 100, 700, 1500, 2048, 37)
 NUM_SLOTS, MAX_PROMPT, MAX_NEW = 4, 2048, 64
-TIMED_SEQ = (128, 512, 2048)
+# K1's timed serving shapes: buckets the slice runs (8, 64, 128, 1024 and
+# 2048 in all).
+TIMED_SEQ = (128, 1024, 2048)
 DECODE_TICKS = 16  # timed ticks at 4 busy slots (< MAX_NEW - 1)
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core rate and HBM3 bandwidth.
@@ -125,12 +128,18 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flash_flops(B, S, H, D, causal):
+    """q.k^T and p.v at 2 flops a multiply-add over the (query, key) pairs
+    the mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4.0 * B * H * D * pairs
+
+
 def flash_bound(B, S, H, KVH, D, causal):
     """Least time for one forward: q.k^T and p.v at 2 flops a multiply-add
     over the (query, key) pairs the mask keeps, against q/k/v read once and
     o/lse written once. Returns (ms, "operations" | "bytes")."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4.0 * B * H * D * pairs
+    flops = flash_flops(B, S, H, D, causal)
     nbytes = 2.0 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4.0 * B * H * S
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     if t_ops >= t_bytes:
@@ -143,7 +152,9 @@ def attn_inputs(seed, B, S, H, KVH, D, device, fused=""):
     views into one [B, S, 2, KVH, D] tensor, the layout the model's fused
     k/v projection (``wkv``, GQA) hands to attention; with ``fused="qkv"``
     q, k and v are views into one [B, S, 3, H, D] tensor, that of the fused
-    ``wqkv`` projection (MHA, the training model)."""
+    ``wqkv`` projection (MHA, the training model); with ``fused="nan"``
+    each is the [:, :S] view of a [B, S + 64, heads, D] tensor whose rows
+    past S hold NaN."""
     import numpy as np
     import torch
 
@@ -153,6 +164,13 @@ def attn_inputs(seed, B, S, H, KVH, D, device, fused=""):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             device, torch.bfloat16)
 
+    if fused == "nan":
+        out = []
+        for heads in (H, KVH, KVH):
+            x = t((B, S + 64, heads, D))
+            x[:, S:] = float("nan")
+            out.append(x[:, :S])
+        return tuple(out)
     if fused == "qkv":
         qkv = t((B, S, 3, H, D))
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -164,6 +182,8 @@ def attn_inputs(seed, B, S, H, KVH, D, device, fused=""):
 
 
 def phase_kernel_check(fa, bucket_len, device):
+    import torch
+
     cases = []
     for H, KVH, D in ((16, 16, 64), (32, 8, 128)):
         for S in (96, 192, 2048):
@@ -171,10 +191,19 @@ def phase_kernel_check(fa, bucket_len, device):
                 cases.append((2 if S < 2048 else 1, S, H, KVH, D, causal,
                               ""))
     cases.append((1, 100, 4, 2, 32, True, ""))
+    # Ragged lengths: below one 128-key tile, and tails past a multiple of
+    # it; MHA, GQA 32/8 and 4/2 at each head dim.
+    for H, KVH, D in ((16, 16, 64), (32, 8, 128), (4, 2, 32)):
+        for S in (5, 37, 130, 1000):
+            cases.append((2, S, H, KVH, D, True, ""))
     buckets = sorted({bucket_len(n, MAX_PROMPT) for n in PROMPT_LENS})
     cases += [(1, S, 32, 8, 128, True, "kv") for S in buckets]
     # The training shape, q/k/v as views of the fused wqkv projection.
     cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
+    # q/k/v as [:, :S] views of [B, S + 64, heads, D] tensors whose rows
+    # past S hold NaN: the kernel must never read past S.
+    cases += [(2, 100, H, KVH, D, True, "nan")
+              for H, KVH, D in ((32, 8, 128), (16, 16, 64), (4, 2, 32))]
     worst_o = worst_lse = 0.0
     rows = []
     for i, (B, S, H, KVH, D, causal, fused) in enumerate(cases):
@@ -184,7 +213,8 @@ def phase_kernel_check(fa, bucket_len, device):
         o, po = o.float(), po.float()
         o_err = float((o - po).abs().max())
         lse_err = float((lse - plse).abs().max())
-        o_ok = bool(((o - po).abs() <= O_ATOL + O_RTOL * po.abs()).all())
+        o_ok = bool(((o - po).abs() <= O_ATOL + O_RTOL * po.abs()).all()
+                    and torch.isfinite(o).all() and torch.isfinite(lse).all())
         rows.append({"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
                      "causal": causal, "fused": fused,
                      "o_err": o_err, "lse_err": lse_err})
@@ -713,12 +743,15 @@ def bwd_bound(B, S, H, KVH, D, causal, products, writes_q):
 
 def device_ms(fn, iters: int) -> float:
     """Mean device time of ``fn``: the kernel time torch.profiler records
-    over ``iters`` calls, without the host's gaps between them."""
+    over ``iters`` calls, without the host's gaps between them. A profile
+    that records no device time at all (once in about ten runs on the
+    H100, for an SDPA call) is taken again, up to three times."""
     fn()  # warm
-    busy, _ = _device_profile(lambda: [fn() for _ in range(iters)])
-    if not busy:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return busy / iters
+    for _ in range(3):
+        busy, _ = _device_profile(lambda: [fn() for _ in range(iters)])
+        if busy:
+            return busy / iters
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def sdpa_times(q, k, v, scale, do=None, iters=20):
@@ -793,6 +826,9 @@ def phase_kernel_time(fa, device):
                                                   iters=iters)),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "roofline_share": bound_ms / ms})
+        # Achieved rate: the operations the mask keeps over device time.
+        rows[-1]["tflops"] = flash_flops(B, S, H, D, True) / (
+            rows[-1]["device_ms"] * 1e9)
     serve_row = rows[len(TIMED_SEQ) - 1]
     emit("kernel_time", kernel="flash_fwd", l2_flushed=False, rows=rows)
 

@@ -98,7 +98,8 @@ def build() -> None:
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    # The kernel reads rows of D contiguous bf16 with 16-byte loads.
+    # The kernels read rows of D contiguous bf16: K2/K3 with 16-byte loads,
+    # K1 through TMA, which takes a 16-byte aligned base and strides.
     if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1])
             or x.data_ptr() % 16):
         x = x.contiguous()
@@ -109,8 +110,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B,S,H,D], lse [B,H,S,1] f32). CUDA tensors launch the Hopper
-    kernel (bf16, D in 32/64/128) or raise; CPU tensors take the plain
-    version."""
+    kernel (bf16, D in 32/64/128; q/k/v read through TMA tensor maps built
+    from their strides, so views of a fused projection are not copied) or
+    raise; CPU tensors take the plain version."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":

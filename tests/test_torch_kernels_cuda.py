@@ -32,12 +32,15 @@ def _qkv(seed, B, S, H, KVH, D, device):
         for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
 
 
-@pytest.mark.parametrize("S,H,KVH,D", [(96, 16, 16, 64), (192, 32, 8, 128),
-                                       (100, 4, 2, 32)])
+# Lengths below one 128-key tile (5, 37), multiples of 32 and ragged tails
+# past a tile (100, 130, 1000); MHA and GQA groups of 4 and 2.
+@pytest.mark.parametrize("S", [5, 37, 96, 100, 130, 192, 1000])
+@pytest.mark.parametrize("H,KVH", [(16, 16), (32, 8), (4, 2)])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_forward_kernel_matches_plain(causal, S, H, KVH, D):
-    """bf16. Tolerance: o within 2e-2 (p is rounded to bf16 before p.v, as
-    on the TPU), lse within 1e-3 (f32 statistics)."""
+def test_flash_forward_kernel_matches_plain(causal, D, H, KVH, S):
+    """bf16, B=2. Tolerance: o within 2e-2 (p is rounded to bf16 before
+    p.v, as on the TPU), lse within 1e-3 (f32 statistics)."""
     q, k, v = _qkv(S + D, 2, S, H, KVH, D, _card())
     before = tfa.flash_attention_fwd.launches
     o, lse = tfa.flash_attention_fwd(q, k, v, D ** -0.5, causal)
@@ -48,19 +51,49 @@ def test_flash_forward_kernel_matches_plain(causal, S, H, KVH, D):
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
 
 
-def test_flash_forward_kernel_reads_strided_kv():
-    """k and v as views into the fused [B, S, 2, KVH, D] projection, as the
-    model hands them over: the kernel reads them by strides."""
+@pytest.mark.parametrize("fused", ["kv", "qkv"])
+def test_flash_forward_kernel_reads_strided_kv(fused):
+    """q/k/v as views into a fused projection, as the model hands them
+    over: k and v from [B, S, 2, KVH, D] (GQA, ``wkv``), or all three from
+    [B, S, 3, H, D] (MHA, ``wqkv``). The kernel reads them by strides."""
     dev = _card()
-    B, S, H, KVH, D = 1, 130, 8, 2, 64
-    q, _, _ = _qkv(1, B, S, H, KVH, D, dev)
-    kv = torch.randn(B, S, 2, KVH, D, device=dev, dtype=torch.bfloat16,
-                     generator=torch.Generator(device=dev).manual_seed(0))
-    k, v = kv[:, :, 0], kv[:, :, 1]
+    B, S, H, KVH, D = 2, 130, 8, (2 if fused == "kv" else 8), 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if fused == "kv":
+        q, _, _ = _qkv(1, B, S, H, KVH, D, dev)
+        kv = torch.randn(B, S, 2, KVH, D, device=dev, dtype=torch.bfloat16,
+                         generator=gen)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        qkv = torch.randn(B, S, 3, H, D, device=dev, dtype=torch.bfloat16,
+                          generator=gen)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     o, lse = tfa.flash_attention_fwd(q, k, v, D ** -0.5, True)
     po, plse = tfa.flash_attention_fwd_plain(q, k, v, D ** -0.5, True)
     torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (16, 16, 64),
+                                     (4, 2, 32)])
+def test_flash_forward_kernel_never_reads_past_s(H, KVH, D):
+    """q/k/v are [:, :S] views of [B, S + 64, heads, D] tensors whose rows
+    past S hold NaN. The tensor maps bound each batch at S, so the kernel's
+    o and lse stay finite and match the plain version on the views."""
+    dev = _card()
+    B, S = 2, 100
+    full = _qkv(7, B, S + 64, H, KVH, D, dev)
+    for x in full:
+        x[:, S:] = float("nan")
+    q, k, v = (x[:, :S] for x in full)
+    for causal in (True, False):
+        o, lse = tfa.flash_attention_fwd(q, k, v, D ** -0.5, causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+        po, plse = tfa.flash_attention_fwd_plain(q, k, v, D ** -0.5, causal)
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
 
 
 def test_flash_forward_kernel_refuses_what_it_does_not_take():
