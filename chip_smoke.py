@@ -15,10 +15,11 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    them.
 2. ``kernel_check`` (twice): K1, then K2 and K3, against their plain
    PyTorch versions on the card, in bf16, on seeded numpy inputs: causal
-   and not, MHA and GQA, sequence lengths with a ragged tail and below one
-   tile, q/k/v as strided views of a fused projection and as views whose
-   rows past S hold NaN, every prefill bucket the serving slice runs and
-   the training shape.
+   and not, MHA and GQA (K3 also with groups wider than one thread-block
+   cluster), head dims 32, 64 and 128, sequence lengths with a ragged tail
+   and below one tile, q/k/v as strided views of a fused projection and as
+   views whose rows past S hold NaN, every prefill bucket the serving slice
+   runs and the training shape.
 3. ``slice``: the main path. Llama-3-8B at full width and depth (bf16
    weights, random from a seed) behind a ``ContinuousBatchingEngine`` with
    4 slots, ticking on its ``run_forever`` thread; 6 greedy requests, the
@@ -41,11 +42,11 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 6. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
    batch 2, seq 1024 with the kernels (bf16), with the plain attention
    (bf16) and with the plain attention in f32, compared per leaf.
-7. ``kernel_time``: K1 (with its achieved TFLOP/s), K2 and K3 at the
-   serving and training shapes beside their plain versions, the SDPA
-   forward or backward (the yardstick, never used by the port: device time
-   on contiguous copies, each backend that takes them pinned in turn, the
-   fastest reported) and their bounds.
+7. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+   achieved TFLOP/s) at the serving and training shapes beside their plain
+   versions, the SDPA forward or backward (the yardstick, never used by
+   the port: device time on contiguous copies, each backend that takes
+   them pinned in turn, the fastest reported) and their bounds.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
@@ -229,10 +230,12 @@ def phase_kernel_check(fa, bucket_len, device):
     return worst_o
 
 
-def bwd_inputs(seed, B, S, H, KVH, D, causal, device, fused=False):
+def bwd_inputs(seed, B, S, H, KVH, D, causal, device, fused=""):
     """Seeded bf16 q/k/v/do and f32 lse/delta for the backward. With
-    ``fused`` q, k and v are views into one [B, S, H + 2 KVH, D] tensor,
-    the layout of the model's fused projection. lse and delta come from
+    ``fused="qkv"`` q, k and v are views into one [B, S, H + 2 KVH, D]
+    tensor, the layout of the model's fused projection; with
+    ``fused="nan"`` q, k, v and do are the [:, :S] views of [B, S + 64,
+    heads, D] tensors whose rows past S hold NaN. lse and delta come from
     the plain forward, so kernel and plain version get the same inputs."""
     import numpy as np
     import torch
@@ -245,12 +248,21 @@ def bwd_inputs(seed, B, S, H, KVH, D, causal, device, fused=False):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             device, torch.bfloat16)
 
-    if fused:
-        qkv = t((B, S, H + 2 * KVH, D))
-        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KVH], qkv[:, :, H + KVH:]
+    def nan_tail(heads):
+        x = t((B, S + 64, heads, D))
+        x[:, S:] = float("nan")
+        return x[:, :S]
+
+    if fused == "nan":
+        q, k, v, do = nan_tail(H), nan_tail(KVH), nan_tail(KVH), nan_tail(H)
     else:
-        q, k, v = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D))
-    do = t((B, S, H, D))
+        if fused == "qkv":
+            qkv = t((B, S, H + 2 * KVH, D))
+            q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KVH],
+                       qkv[:, :, H + KVH:])
+        else:
+            q, k, v = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D))
+        do = t((B, S, H, D))
     o, lse = fa.flash_attention_fwd_plain(q, k, v, D ** -0.5, causal)
     return q, k, v, do, lse, fa.attention_delta(do, o)
 
@@ -264,14 +276,25 @@ def phase_kernel_check_bwd(fa, device):
     """K2 (dq) and K3 (dk, dv) against the plain backward, per tensor."""
     import torch
 
-    cases = []
-    for H, KVH, D in ((16, 16, 64), (32, 8, 128), (4, 2, 32)):
-        for S in (96, 100, 192):
-            for causal in (True, False):
-                cases.append((2, S, H, KVH, D, causal, False))
-    cases += [(TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, False),
-              (2, 130, 16, 16, 64, True, True),
-              (1, 192, 32, 8, 128, False, True)]
+    # K1's grid: lengths below one tile and ragged tails past it, each head
+    # dim, MHA and GQA groups of 4 and 2 (K3 spreads a group over a
+    # cluster), causal and not.
+    cases = [(2, S, H, KVH, D, causal, "")
+             for H, KVH in ((16, 16), (32, 8), (4, 2))
+             for D in (32, 64, 128)
+             for S in (5, 37, 130, 1000)
+             for causal in (True, False)]
+    # Groups past the portable cluster size: 16/1 takes 2 heads a block on
+    # clusters of 8, 24/2 2 heads a block on clusters of 6.
+    cases += [(1, 300, 16, 1, 64, True, ""), (1, 300, 24, 2, 128, False, "")]
+    # q/k/v as views of the fused projection, and views whose rows past S
+    # hold NaN (the kernels must never read past S); the training shape.
+    cases += [(2, 130, 16, 16, 64, True, "qkv"),
+              (1, 192, 32, 8, 128, False, "qkv")]
+    cases += [(2, 100, H, KVH, D, causal, "nan")
+              for H, KVH, D in ((32, 8, 128), (16, 16, 64), (4, 2, 32))
+              for causal in (True, False)]
+    cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
     rows = []
     worst = {"dq": 0.0, "dkv": 0.0}
     for i, (B, S, H, KVH, D, causal, fused) in enumerate(cases):
@@ -279,7 +302,7 @@ def phase_kernel_check_bwd(fa, device):
         got = fa.flash_bwd_core(*args, scale=D ** -0.5, causal=causal)
         want = fa.flash_attention_bwd_plain(*args, D ** -0.5, causal)
         row = {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-               "causal": causal, "fused_qkv": fused}
+               "causal": causal, "fused": fused}
         ok = True
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             err = float((g.float() - w.float()).abs().max())
@@ -725,13 +748,19 @@ def phase_train_grad_check(device):
         raise AssertionError(f"gradients disagree: {failures}")
 
 
+def bwd_flops(B, S, H, D, causal, products):
+    """K2 (3 products) or K3 (4): 2 flops a multiply-add over the (query,
+    key) pairs the mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2.0 * products * B * H * D * pairs
+
+
 def bwd_bound(B, S, H, KVH, D, causal, products, writes_q):
     """Least time for K2 (3 products, writes dq) or K3 (4 products, writes
     dk and dv): 2 flops a multiply-add over the (query, key) pairs the mask
     keeps, against q/k/v/do read once, lse/delta read once, outputs
     written once. Returns (ms, "operations" | "bytes")."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 2.0 * products * B * H * D * pairs
+    flops = bwd_flops(B, S, H, D, causal, products)
     nbytes = (2.0 * (2 * B * S * H * D + 2 * B * S * KVH * D)
               + 8.0 * B * H * S
               + 2.0 * (B * S * H * D if writes_q else 2 * B * S * KVH * D))
@@ -838,25 +867,37 @@ def phase_kernel_time(fa, device):
     for i, (B, S, H, KVH, D) in enumerate(((TRAIN_BATCH, TRAIN_SEQ, 16, 16,
                                             64), (1, 2048, 32, 8, 128))):
         args = bwd_inputs(300 + i, B, S, H, KVH, D, True, device,
-                          fused=KVH != H)
+                          fused="qkv" if KVH != H else "")
         scale = D ** -0.5
         library = _library_fields(sdpa_times(*args[:3], scale, do=args[3]))
-        for name, fn, plain, products, writes_q in (
-                ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 3,
-                 True),
-                ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
-                 4, False)):
-            kernel = lambda: fn(*args, scale, True)
+        both = lambda: (fa.flash_bwd_dq(*args, scale, True),
+                        fa.flash_bwd_dkv(*args, scale, True))
+        # K2 and K3 one after the other, as the backward runs them, beside
+        # the one SDPA call that computes all three gradients; the bound is
+        # the sum of theirs.
+        for name, kernel, plain, products in (
+                ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args, scale, True),
+                 fa.flash_bwd_dq_plain, (3,)),
+                ("flash_bwd_dkv",
+                 lambda: fa.flash_bwd_dkv(*args, scale, True),
+                 fa.flash_bwd_dkv_plain, (4,)),
+                ("flash_bwd_dq+dkv", both, fa.flash_attention_bwd_plain,
+                 (3, 4))):
             ms = cuda_ms(kernel, iters=20)
             plain_ms = cuda_ms(lambda: plain(*args, scale, True), iters=3)
-            bound_ms, bound_by = bwd_bound(B, S, H, KVH, D, True, products,
-                                           writes_q)
+            bounds = [bwd_bound(B, S, H, KVH, D, True, n, n == 3)
+                      for n in products]
+            bound_ms = sum(b[0] for b in bounds)
+            dev_ms = device_ms(kernel, 20)
             bwd_rows.append({
                 "kernel": name, "B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-                "causal": True, "ms": ms, "device_ms": device_ms(kernel, 20),
+                "causal": True, "ms": ms, "device_ms": dev_ms,
+                "tflops": sum(bwd_flops(B, S, H, D, True, n)
+                              for n in products) / (dev_ms * 1e9),
                 "plain_ms": plain_ms, **library,
                 "library": "sdpa backward (dq, dk, dv together)",
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms": bound_ms,
+                "bound_by": "+".join(b[1] for b in bounds),
                 "roofline_share": bound_ms / ms})
     emit("kernel_time", kernel="flash_bwd", l2_flushed=False, rows=bwd_rows)
     # The kernels line: K1 at its serving shape, K2/K3 at the training one.

@@ -7,9 +7,10 @@ Hopper (``sm_90a``), one ``nvcc -c`` per source at once, and linked with
 ``ray_tpu_torch/_build/<name>/<name>-<hash>.so`` the first time a wrapper
 needs it and loaded with ``ctypes``; the wrapper passes raw device pointers,
 strides and PyTorch's current stream. The file name carries a hash of the
-sources and flags, so a later process reuses the build and an edited source
-builds anew. Nothing here runs at import time: the CPU tests import every
-module on a machine with no ``nvcc``.
+flags and of every file under ``csrc/`` (headers included), so a later
+process reuses the build and an edited source or header builds anew.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -39,12 +40,19 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _build(name: str, sources: Sequence[Path]) -> Path:
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every file under ``csrc`` (names and
+    bytes): an edited source or header names a new library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        digest.update(s.read_bytes())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        digest.update(str(f.relative_to(csrc)).encode() + b"\0")
+        digest.update(f.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _build(name: str, sources: Sequence[Path]) -> Path:
     build_dir = BUILD_ROOT / name
-    out = build_dir / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = build_dir / f"{name}-{source_digest()}.so"
     if out.exists():
         return out
     build_dir.mkdir(parents=True, exist_ok=True)

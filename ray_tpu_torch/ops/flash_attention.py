@@ -98,12 +98,19 @@ def build() -> None:
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    # The kernels read rows of D contiguous bf16: K2/K3 with 16-byte loads,
-    # K1 through TMA, which takes a 16-byte aligned base and strides.
+    # The kernels read rows of D contiguous bf16 through TMA, which takes a
+    # 16-byte aligned base and strides.
     if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1])
             or x.data_ptr() % 16):
         x = x.contiguous()
     return x
+
+
+def _stat_operand(x: torch.Tensor) -> torch.Tensor:
+    # lse/delta [B, H, S, 1] f32 as one contiguous run; K3 reads it through
+    # a 1-D TMA map, which takes a 16-byte aligned base.
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -259,7 +266,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
     B, S, H, D = q.shape
     q, k, v, do = map(_kernel_operand, (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    lse, delta = _stat_operand(lse), _stat_operand(delta)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
@@ -289,7 +296,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float,
     B, S, H, D = q.shape
     KVH = k.shape[2]
     q, k, v, do = map(_kernel_operand, (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    lse, delta = _stat_operand(lse), _stat_operand(delta)
     dk = torch.empty((B, S, KVH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, KVH, D), dtype=v.dtype, device=q.device)
     lib = _kernel_library()

@@ -142,3 +142,24 @@ def test_backward_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="one device"):
         tfa.flash_bwd_dq(q, q, q, q, torch.zeros(1, 2, 16, 1),
                          torch.zeros(1, 2, 16, 1, device="meta"), 0.1, True)
+
+
+def test_kernel_library_name_hashes_every_source_and_header(tmp_path):
+    """The library's file name carries a hash of every file under
+    ``ops/csrc/``: an edited header (included by both kernel sources) must
+    name a new library, or a stale build would be loaded. Needs no nvcc."""
+    import shutil
+
+    from ray_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert _build.source_digest(csrc) == _build.source_digest()
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share a header"
+    base = _build.source_digest(csrc)
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    edited = _build.source_digest(csrc)
+    assert edited != base
+    (csrc / "extra.cuh").write_text("// new header\n")
+    assert _build.source_digest(csrc) not in (base, edited)

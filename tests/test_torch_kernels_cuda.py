@@ -110,36 +110,41 @@ def _rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def _bwd_inputs(seed, B, S, H, KVH, D, causal, dev, fused=False):
-    """bf16 q/k/v/do (with ``fused``, q/k/v are views of one [B, S, H + 2
-    KVH, D] projection) and lse/delta from the plain forward."""
+def _bwd_inputs(seed, B, S, H, KVH, D, causal, dev, fused=""):
+    """bf16 q/k/v/do and lse/delta from the plain forward. With
+    ``fused="qkv"`` q/k/v are views of one [B, S, H + 2 KVH, D] projection;
+    with ``fused="nan"`` q/k/v/do are [:, :S] views of [B, S + 64, heads,
+    D] tensors whose rows past S hold NaN."""
     rng = np.random.default_rng(seed)
 
     def t(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                 ).to(dev, torch.bfloat16)
 
-    if fused:
-        qkv = t((B, S, H + 2 * KVH, D))
-        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KVH], qkv[:, :, H + KVH:]
+    def nan_tail(heads):
+        x = t((B, S + 64, heads, D))
+        x[:, S:] = float("nan")
+        return x[:, :S]
+
+    if fused == "nan":
+        q, k, v, do = nan_tail(H), nan_tail(KVH), nan_tail(KVH), nan_tail(H)
     else:
-        q, k, v = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D))
-    do = t((B, S, H, D))
+        if fused == "qkv":
+            qkv = t((B, S, H + 2 * KVH, D))
+            q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KVH],
+                       qkv[:, :, H + KVH:])
+        else:
+            q, k, v = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D))
+        do = t((B, S, H, D))
     o, lse = tfa.flash_attention_fwd_plain(q, k, v, D ** -0.5, causal)
     return q, k, v, do, lse, tfa.attention_delta(do, o)
 
 
-@pytest.mark.parametrize("S,H,KVH,D,fused", [
-    (96, 16, 16, 64, False), (192, 32, 8, 128, False),
-    (100, 4, 2, 32, False), (130, 8, 2, 64, True)])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_backward_kernels_match_plain(causal, S, H, KVH, D, fused):
-    """K2 and K3 in bf16 against the plain f32 backward on the same
-    inputs. Tolerance: relative L2 2e-2 per tensor (p and ds are rounded to
-    bf16 before their products, as on the TPU; the plain version keeps
-    them in f32)."""
-    dev = _card()
-    args = _bwd_inputs(S + D, 2, S, H, KVH, D, causal, dev, fused)
+def _check_backward(args, D, causal):
+    """K2 and K3 in bf16 against the plain f32 backward on the same inputs.
+    Tolerance: relative L2 2e-2 per tensor (p and ds are rounded to bf16
+    before their products, as on the TPU; the plain version keeps them in
+    f32)."""
     before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
     got = tfa.flash_bwd_core(*args, scale=D ** -0.5, causal=causal)
     torch.cuda.synchronize()
@@ -150,6 +155,45 @@ def test_flash_backward_kernels_match_plain(causal, S, H, KVH, D, fused):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         assert torch.isfinite(g).all(), name
         assert _rel_l2(g, w) <= 2e-2, (name, _rel_l2(g, w))
+
+
+# K1's grid: lengths below one tile (5, 37) and ragged tails past it (130,
+# 1000); MHA and GQA groups of 4 and 2 (K3 spreads a group over a
+# thread-block cluster); each head dim.
+@pytest.mark.parametrize("S", [5, 37, 130, 1000])
+@pytest.mark.parametrize("H,KVH", [(16, 16), (32, 8), (4, 2)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_match_plain(causal, D, H, KVH, S):
+    _check_backward(_bwd_inputs(S + D, 2, S, H, KVH, D, causal, _card()),
+                    D, causal)
+
+
+@pytest.mark.parametrize("S,H,KVH,D,fused", [
+    (130, 8, 2, 64, "qkv"), (192, 32, 8, 128, "qkv"),
+    (100, 32, 8, 128, "nan"), (100, 16, 16, 64, "nan"),
+    (100, 4, 2, 32, "nan"),
+    # Groups past the portable cluster size of 8: 16/1 runs clusters of 8
+    # blocks with 2 heads each, 24/2 clusters of 6 with 2 heads each.
+    (300, 16, 1, 64, ""), (300, 24, 2, 128, "")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_read_views_and_wide_groups(causal, S, H,
+                                                           KVH, D, fused):
+    """q/k/v as views of a fused projection; q/k/v/do as views whose rows
+    past S hold NaN (the tensor maps bound each batch at S, so nothing past
+    S is read); GQA groups wider than one cluster."""
+    _check_backward(_bwd_inputs(S + H, 2, S, H, KVH, D, causal, _card(),
+                                fused), D, causal)
+
+
+def test_flash_backward_dkv_is_deterministic():
+    """K3 sums the GQA group over a cluster's blocks in rank order, with no
+    atomics: two runs give the same bits."""
+    args = _bwd_inputs(3, 2, 1000, 32, 8, 128, True, _card())
+    a = tfa.flash_bwd_dkv(*args, 128 ** -0.5, True)
+    b = tfa.flash_bwd_dkv(*args, 128 ** -0.5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_flash_attention_autograd_on_card_matches_reference():

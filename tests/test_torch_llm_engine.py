@@ -166,29 +166,71 @@ def test_concurrent_submitters_against_the_ticker(setup):
 def test_ticker_lets_blocked_lock_takers_in(setup):
     """A running ticker re-takes the engine lock right after each tick;
     Python's locks are not fair, so without the engine's yield a poller and
-    a submitter wait until the running request retires. Both must get in
-    within a few ticks of a 64-token request."""
-    for trial in range(3):
-        eng = _engine(setup, num_slots=2, max_prompt_len=16,
-                      max_new_tokens=64)
-        stop = threading.Event()
-        ticker = threading.Thread(target=eng.run_forever, args=(stop,),
-                                  daemon=True)
-        ticker.start()
-        try:
-            a = eng.submit([5, 9, 2])
-            while len(eng.peek(a)) < 3:
+    a submitter's splice wait until the running request retires. Both must
+    get in within a few ticks of a 64-token request.
+
+    Only the ticks that run while the taker is blocked on the lock count:
+    the test holds the lock until the taker (a ``peek``, then the splice of
+    a ``submit`` whose prefill has already run outside the lock) and the
+    ticker are both blocked on it, then lets go. Ticks of a prefill or of a
+    poll's sleep are not counted, so the bound does not depend on the
+    host's load."""
+    eng = _engine(setup, num_slots=2, max_prompt_len=16, max_new_tokens=64)
+    ticks, blocked_ticks = [0], [0]
+    step = eng._tick
+
+    def counted_step(*args):
+        # Runs under the engine lock: a blocked count here is the taker's.
+        ticks[0] += 1
+        if eng.lock.blocked:
+            blocked_ticks[0] += 1
+        return step(*args)
+
+    eng._tick = counted_step
+    stop = threading.Event()
+    ticker = threading.Thread(target=eng.run_forever, args=(stop,),
+                              daemon=True)
+    ticker.start()
+
+    def ticks_while_blocked(take):
+        """Take the lock (this thread is a blocked taker too), start
+        ``take`` on a thread, wait until it and the ticker are both blocked
+        on the lock, let go. Returns the ticks that ran while this thread
+        waited for the lock, those that ran while ``take`` did, and what
+        ``take`` returned."""
+        out = []
+        blocked_ticks[0] = 0
+        with eng.lock:
+            held = blocked_ticks[0]
+            taker = threading.Thread(target=lambda: out.append(take()),
+                                     daemon=True)
+            taker.start()
+            deadline = time.monotonic() + 60
+            while eng.lock.blocked < 2:
+                assert time.monotonic() < deadline, eng.lock.blocked
                 time.sleep(1e-3)
-            before = len(eng.peek(a))
-            b = eng.submit([7, 1, 3], timeout=120)
-            after = len(eng.peek(a))
-            assert before <= 8, (trial, before)
-            assert after - before <= 16, (trial, before, after)
-            assert len(eng.result(b, timeout=120)) == 64
-        finally:
-            stop.set()
-            ticker.join(timeout=30)
-        assert not ticker.is_alive() and eng.failed is None
+            blocked_ticks[0] = 0
+        taker.join(timeout=120)
+        assert not taker.is_alive() and len(out) == 1
+        return held, blocked_ticks[0], out[0]
+
+    try:
+        a = eng.submit([5, 9, 2])
+        while ticks[0] < 3:  # read without the lock: the ticker is running
+            time.sleep(1e-3)
+        for trial in range(3):
+            held, n, seen = ticks_while_blocked(lambda: eng.peek(a))
+            assert held <= 3 and n <= 3, ("peek", trial, held, n)
+            assert len(seen) < 64, ("a retired first", trial, len(seen))
+        held, n, b = ticks_while_blocked(lambda: eng.submit([7, 1, 3],
+                                                            timeout=120))
+        assert held <= 3 and n <= 3, ("splice", held, n)
+        assert len(eng.result(a, timeout=120)) == 64
+        assert len(eng.result(b, timeout=120)) == 64
+    finally:
+        stop.set()
+        ticker.join(timeout=30)
+    assert not ticker.is_alive() and eng.failed is None
 
 
 def test_discard_releases_state_and_ticker_failure_surfaces(setup):
