@@ -39,10 +39,22 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    ln(vocab), and that each step launched K1 48 times (24 layers, and
    again under "dots" remat) and K2 and K3 24 times each. Prints step ms,
    tokens/s, an MFU-style share, peak memory, and one profiled step.
-6. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
+6. ``dist_train``: the mesh training path. The same model, batch and
+   seed through ``transformer_train_step(cfg, mesh=make_mesh(
+   MeshSpec(fsdp=-1)), rules=RULES_FSDP)``: params and AdamW state as
+   DTensors, K1/K2/K3 on each rank's local shards through ``local_map``.
+   One rank per visible card, up to 4: with one card it runs in this
+   process on a world-1 NCCL group, with more it spawns one process a
+   card. 2 warm-up and 3 timed steps. Checks 48/24/24 K1/K2/K3 launches a
+   step and that the 5 losses equal the first 5 of ``train`` (bit for bit
+   on one card; within 1e-3 relative on more, where the batch shards'
+   gradients are summed in another order). Prints step ms beside
+   ``train``'s (the host cost of DTensor dispatch), peak memory per rank
+   and one profiled step.
+7. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
    batch 2, seq 1024 with the kernels (bf16), with the plain attention
    (bf16) and with the plain attention in f32, compared per leaf.
-7. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+8. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: device time on contiguous copies, each backend that takes
@@ -50,6 +62,7 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
+
 Without a CUDA card, or outside a checkout of the repo, it exits non-zero.
 """
 from __future__ import annotations
@@ -57,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -85,6 +99,13 @@ LSE_ATOL = 1e-3
 GRAD_REL_L2 = 2e-2
 # The training phase: bench_350m at full width and depth.
 TRAIN_BATCH, TRAIN_SEQ, WARM_STEPS, TIMED_STEPS = 8, 1024, 2, 10
+# dist_train: steps on the mesh, at most this many ranks, and its losses
+# against train's first ones. On one card the mesh path runs the same bf16
+# model on the same whole batch, so its losses must be train's exactly; on
+# more it sums the batch shards' gradients in another order, and they must
+# agree within DIST_LOSS_RTOL (relative).
+DIST_WARM_STEPS, DIST_TIMED_STEPS, DIST_MAX_RANKS = 2, 3, 4
+DIST_LOSS_RTOL = 1e-3
 # train_grad_check: one step's gradients, per leaf. The kernel run against
 # the plain-attention bf16 run (relative L2), and the kernel run may lie at
 # most 1.5 times as far from the f32 run as the plain bf16 run does.
@@ -110,7 +131,7 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
+    return out.strip()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -691,7 +712,162 @@ def phase_train(fa, device):
                   "top_kernels_ms": top[:10]})
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches
+    return launches, losses, step_s
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_train_rank(rank, world, addr, device_type, cfg, batch, seq,
+                    results=None):
+    """One rank of ``dist_train``: join the world, train on the fsdp mesh,
+    return (or put on ``results``) this rank's numbers. Launch counts are
+    read around the steps alone."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import (RULES_FSDP, MeshBootstrap, MeshSpec,
+                                        make_mesh)
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    try:
+        MeshBootstrap(addr, world, rank, local_rank=rank,
+                      device_type=device_type).initialize()
+        try:
+            mesh = make_mesh(MeshSpec(fsdp=-1), device_type)
+            ts = transformer_train_step(cfg, mesh=mesh, rules=RULES_FSDP,
+                                        shift_inputs=True)
+            device = ts.device
+            cuda = device.type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            params, opt = ts.init(gen)
+            tokens = _train_tokens(cfg, batch, seq, device)
+            sharded = ts.shard_batch({"tokens": tokens})
+            local_batch = tuple(sharded["tokens"].to_local().shape)
+            losses = []
+            _zero_launch_counts(fa)  # count the main path alone
+            for _ in range(DIST_WARM_STEPS):
+                params, opt, loss = ts.step(params, opt, sharded)
+                losses.append(loss)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_TIMED_STEPS):
+                params, opt, loss = ts.step(params, opt, sharded)
+                losses.append(loss)
+            if cuda:
+                torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / DIST_TIMED_STEPS
+            launches = _launch_counts(fa)
+            out = {"rank": rank, "world": world, "losses":
+                   [float(x) for x in losses], "step_s": step_s,
+                   "launches": launches, "local_tokens": local_batch,
+                   "placements": {k: repr(tuple(v.placements)) for k, v in
+                                  params["layers"].items()}}
+            if cuda:
+                out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(device)
+                                       / 2 ** 30)
+                busy, top = _device_profile(
+                    lambda: ts.step(params, opt, sharded))
+                # NCCL work shows twice (its "nccl:" annotation and its
+                # kernel), and a collective's kernel waits for its peers:
+                # it is reported apart, and compute alone is busy time.
+                nccl = sum(ms for k, ms in top if k.startswith("ncclDev"))
+                busy -= sum(ms for k, ms in top if k.startswith("nccl"))
+                out["profile"] = {
+                    "compute_busy_ms": busy, "nccl_kernel_ms": nccl,
+                    "unprofiled_ms": step_s * 1e3,
+                    "idle_share": 1 - busy / (step_s * 1e3) if busy else None,
+                    "top_kernels_ms": top[:12]}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        if results is None:
+            raise
+        import traceback
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        return None
+    if results is not None:
+        results.put(out)
+    return out
+
+
+def phase_dist_train(device, train_losses, train_step_s):
+    """The mesh training path: bench_350m on an fsdp mesh of every visible
+    card (up to 4)."""
+    import multiprocessing
+
+    import torch
+
+    from ray_tpu_torch.models.configs import bench_350m
+
+    cfg = bench_350m(remat=True, remat_policy="dots")
+    world = min(torch.cuda.device_count(), DIST_MAX_RANKS)
+    addr = f"localhost:{_free_port()}"
+    args = (world, addr, "cuda", cfg, TRAIN_BATCH, TRAIN_SEQ)
+    if world == 1:
+        ranks = [dist_train_rank(0, *args)]
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=dist_train_rank, args=(r, *args, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            ranks = [results.get(timeout=600) for _ in range(world)]
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+        errors = [r["error"] for r in ranks if "error" in r]
+        if errors:
+            raise RuntimeError("a dist_train rank failed:\n" + errors[0])
+        ranks.sort(key=lambda r: r["rank"])
+    lead = ranks[0]
+    steps = DIST_WARM_STEPS + DIST_TIMED_STEPS
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    ref = train_losses[:steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lead["losses"], ref)]
+    rtol = DIST_LOSS_RTOL if world > 1 else 0.0
+    failures = []
+    for r in ranks:
+        if r["launches"] != want:
+            failures.append(f"rank {r['rank']} launches {r['launches']}, "
+                            f"expected {want}")
+        if r["losses"] != lead["losses"]:
+            failures.append(f"rank {r['rank']} losses {r['losses']} differ "
+                            f"from rank 0's")
+    if not max(rel) <= rtol:
+        failures.append(f"losses {lead['losses']} against train's {ref}: "
+                        f"relative {rel} (tol {rtol})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("dist_train", ok=not failures, failures=failures,
+         model="bench_350m", n_layers=cfg.n_layers,
+         remat_policy=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         mesh={"fsdp": world}, rules="RULES_FSDP", world=world,
+         local_tokens=lead["local_tokens"], placements=lead["placements"],
+         warm_steps=DIST_WARM_STEPS, timed_steps=DIST_TIMED_STEPS,
+         losses=lead["losses"], train_losses=ref, loss_rel_diff=rel,
+         loss_rtol=rtol, launches=lead["launches"],
+         launches_per_step={k: v / steps for k, v in lead["launches"].items()},
+         step_ms=lead["step_s"] * 1e3, train_step_ms=train_step_s * 1e3,
+         step_ratio=lead["step_s"] / train_step_s,
+         tokens_per_s=tokens / lead["step_s"],
+         peak_mem_gib_per_rank=[r["peak_mem_gib"] for r in ranks],
+         profile=lead["profile"])
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return lead["launches"]
 
 
 def phase_train_grad_check(device):
@@ -924,8 +1100,7 @@ def main() -> int:
                                     "flash_bwd_dkv"],
          seconds=time.perf_counter() - t0, torch=torch.__version__,
          cuda=torch.version.cuda)
-    card = card_line()
-    print(card, flush=True)
+    print(card_line(), flush=True)
 
     max_err = phase_kernel_check(fa, bucket_len, device)
     bwd_err = phase_kernel_check_bwd(fa, device)
@@ -936,7 +1111,10 @@ def main() -> int:
     del cfg, params, eng
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(fa, device)
+    train_launches, train_losses, train_step_s = phase_train(fa, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist_train(device, train_losses, train_step_s)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_grad_check(device)
@@ -947,9 +1125,11 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
-        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches": (serve_launches + train_launches["flash_fwd"]
+                     + dist_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["flash_fwd"]},
+                             "train": train_launches["flash_fwd"],
+                             "dist_train": dist_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
         "device_ms": fwd_timed["device_ms"],
@@ -967,7 +1147,9 @@ def main() -> int:
             "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name] + dist_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "dist_train": dist_launches[name]},
             "max_abs_err": err,
             "ms": timed["ms"],
             "device_ms": timed["device_ms"],

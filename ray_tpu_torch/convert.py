@@ -5,18 +5,24 @@ the same names and shapes as the port's parameters (layers stacked
 [L, ...]: ``wqkv`` [L,d,3,H,hd] for MHA, ``wq`` [L,d,H,hd] with ``wkv``
 [L,d,2,KVH,hd] for GQA, ``w_gate_up`` [L,d,2,F], optional
 ``<name>_q8_scale`` siblings of int8 weights; a tied head has no
-``lm_head`` and reads ``embed.T``).
+``lm_head`` and reads ``embed.T``). :func:`params_to_mesh` carries them
+onto a device mesh as DTensors, placed as a sharded train step places
+them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .device import DeviceLike, resolve_device
 from .models.quantize import SCALE_SUFFIX
-from .models.transformer import TransformerConfig, param_spec
+from .models.transformer import (TransformerConfig, param_logical_specs,
+                                 param_spec)
+from .parallel import sharding as shd
+from .parallel.mesh import mesh_device
 
 Params = Dict[str, Any]
 
@@ -77,11 +83,28 @@ def params_from_numpy(tree: Params, cfg: TransformerConfig,
     return out
 
 
+def params_to_mesh(tree: Params, cfg: TransformerConfig, mesh,
+                   rules: Optional[shd.Rules] = None) -> Params:
+    """JAX param tree of numpy arrays (the same on every rank) -> DTensors
+    on ``mesh`` with the placements ``tree_shardings(mesh,
+    param_logical_specs(cfg), rules)`` gives them, one leaf on the device
+    at a time. Names and shapes are checked as by
+    :func:`params_from_numpy`."""
+    host = params_from_numpy(tree, cfg, "cpu")
+    device = mesh_device(mesh)
+    return shd.tree_map(
+        lambda t, s: s.distribute(t.to(device)), host,
+        shd.tree_shardings(mesh, param_logical_specs(cfg), rules))
+
+
 def params_to_numpy(params: Params) -> Params:
     """The inverse of :func:`params_from_numpy`: a tree of numpy arrays on
     the host. bfloat16 leaves come out as float32 (numpy has no bfloat16
-    of its own), which is exact."""
+    of its own), which is exact. DTensor leaves are gathered whole (every
+    rank of their mesh calls this)."""
     def leaf(t: torch.Tensor) -> np.ndarray:
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

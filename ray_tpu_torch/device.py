@@ -6,11 +6,22 @@ present they raise: they never fall back to the CPU on their own.
 """
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def _rank_card() -> int:
+    """This process's card: ``LOCAL_RANK`` (as a launcher sets it) once a
+    process group is up, else the current device."""
+    if dist.is_available() and dist.is_initialized() and (
+            "LOCAL_RANK" in os.environ):
+        return int(os.environ["LOCAL_RANK"])
+    return torch.cuda.current_device()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -18,10 +29,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cuda", _rank_card())
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+        dev = torch.device("cuda", _rank_card())
     return dev
 
 

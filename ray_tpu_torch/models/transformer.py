@@ -18,6 +18,9 @@ parameter names, shapes and numerics, so weights carry across unchanged
   policy, and "half_*" checkpoints half the stack;
 - the loss (``loss_fn``) in both token conventions, unfused or through the
   chunked fused lm-head + CE (``ops/fused_ce.py``).
+- on a mesh (a training step's sharding context, ``parallel/sharding.py``)
+  params and activations are DTensors, and ``maybe_constrain`` redistributes
+  the activations where the JAX model constrains them.
 
 The MoE layer is not ported yet.
 """
@@ -32,12 +35,16 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.fused_ce import fused_next_token_loss
+from ..parallel.sharding import (current_sharding_ctx, gather_for_use,
+                                 maybe_constrain, replicated_like,
+                                 sharding_ctx)
 from .quantize import maybe_dequant
 
 Params = Dict[str, Any]
@@ -167,11 +174,13 @@ def param_spec(cfg: TransformerConfig) -> Dict[str, Any]:
     return spec
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Params:
-    """Random parameters with the JAX ``init_params`` structure and scales,
-    made directly in ``cfg.param_dtype`` on ``device`` (no f32 staging
-    copy). ``generator`` must live on ``device``."""
+def init_leaves(cfg: TransformerConfig, generator: torch.Generator,
+                device: DeviceLike = None
+                ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """The random parameters one at a time, as (path, tensor) with path
+    ``(name,)`` or ``("layers", name)``, in the order :func:`init_params`
+    draws them from ``generator``. A sharded trainer distributes each leaf
+    before the next is made, so no device holds the whole model."""
     device = resolve_device(device)
 
     def make(shape, init):
@@ -184,9 +193,61 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         return t.mul_(init)
 
     spec = param_spec(cfg)
-    params: Params = {k: make(*v) for k, v in spec.items() if k != "layers"}
-    params["layers"] = {k: make(*v) for k, v in spec["layers"].items()}
+    for k, v in spec.items():
+        if k != "layers":
+            yield (k,), make(*v)
+    for k, v in spec["layers"].items():
+        yield ("layers", k), make(*v)
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Params:
+    """Random parameters with the JAX ``init_params`` structure and scales,
+    made directly in ``cfg.param_dtype`` on ``device`` (no f32 staging
+    copy). ``generator`` must live on ``device``."""
+    params: Params = {"layers": {}}
+    for path, t in init_leaves(cfg, generator, device):
+        (params["layers"] if path[0] == "layers" else params)[path[-1]] = t
     return params
+
+
+def param_logical_specs(cfg: TransformerConfig) -> Params:
+    """Tree of logical axis names matching init_params' structure (consumed
+    by parallel.sharding.tree_shardings): the JAX package's
+    ``param_logical_specs``."""
+    _require_dense(cfg)
+    # The leading dim is the layer stack: logical axis "layers" maps onto
+    # the `pipe` mesh axis.
+    layers = {
+        "attn_norm": ("layers", None),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", None),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    if cfg.kv_heads == cfg.n_heads:
+        layers["wqkv"] = ("layers", "embed", None, "heads", None)
+    else:
+        layers["wq"] = ("layers", "embed", "heads", None)
+        layers["wkv"] = ("layers", "embed", None, "kv_heads", None)
+    if cfg.activation == "swiglu":
+        layers["w_gate_up"] = ("layers", "embed", None, "mlp")
+    else:
+        layers["w_up"] = ("layers", "embed", "mlp")
+    if cfg.norm == "layernorm":
+        layers["attn_norm_b"] = ("layers", None)
+        layers["mlp_norm_b"] = ("layers", None)
+    specs: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": (None,),
+        "layers": layers,
+    }
+    if cfg.norm == "layernorm":
+        specs["final_norm_b"] = (None,)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    if cfg.positional == "learned":
+        specs["pos_embed"] = (None, "embed")
+    return specs
 
 
 def iter_layers(params: Params) -> Iterator[Params]:
@@ -225,8 +286,8 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=x.device) / half))
     angles = positions[:, :, None].float() * freqs[None, None, :]  # [B,S,half]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicated_like(torch.cos(angles)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[:, :, None, :], x)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -291,9 +352,25 @@ class _SavedDot(torch.autograd.Function):
         return gh, gw, None
 
 
+def _sharded_out_dim(w: torch.Tensor) -> Optional[int]:
+    """The output dim past the first that a DTensor weight [d, ...] is
+    split on (tensor parallelism: the heads of wqkv [d, 3, H, hd]), if
+    any."""
+    if not isinstance(w, DTensor):
+        return None
+    dims = {p.dim for p in w.placements if isinstance(p, Shard)} - {0, 1}
+    return dims.pop() if dims else None
+
+
 def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A projection of the layer, h [..., d] @ w [d, ...] (a product with
     no batch dimension: what the "dots" policies save)."""
+    lead = _sharded_out_dim(w)
+    if lead is not None:
+        # DTensor keeps a split through the flattening of w's output dims
+        # only on the first of them: move the split dim there and back.
+        n = h.ndim - 1
+        return _proj(h, w.movedim(lead, 1)).movedim(n, n + lead - 1)
     store = getattr(_remat, "dots", None)
     if store is None:
         return _matmul(h, w)
@@ -302,8 +379,10 @@ def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _w(layer: Params, name: str, cfg: TransformerConfig) -> torch.Tensor:
     """Weight access for the layer helpers: compute-dtype view,
-    dequantizing int8 weight-only params when a scale sibling is present."""
-    return maybe_dequant(layer, name, cfg.dtype)
+    dequantizing int8 weight-only params when a scale sibling is present.
+    On a mesh the weight is gathered over the batch axes after the cast
+    (FSDP's all-gather at use, in the compute dtype)."""
+    return gather_for_use(maybe_dequant(layer, name, cfg.dtype))
 
 
 def _qkv_proj(cfg: TransformerConfig, h: torch.Tensor, layer: Params,
@@ -349,10 +428,13 @@ def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     H, hd = cfg.n_heads, cfg.head_dim
     h = _norm(x, layer["attn_norm"], layer.get("attn_norm_b"), cfg.norm)
     q, k, v = _qkv_proj(cfg, h, layer, positions)
+    q = maybe_constrain(q, ("batch", "seq_act", "heads", None))
     o = attention(q, k, v, causal=True)
     x = x + _proj(o.reshape(B, S, H * hd), _w(layer, "wo", cfg))
+    x = maybe_constrain(x, ("batch", "seq_act", "embed"))
     h = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
     x = x + _mlp_block(cfg, h, layer)
+    x = maybe_constrain(x, ("batch", "seq_act", "embed"))
     if return_kv:
         return x, k, v
     return x
@@ -361,9 +443,21 @@ def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  cfg: TransformerConfig) -> torch.Tensor:
     """tokens [B, S] -> embeddings [B, S, d] (cfg.dtype). Gathers the rows
-    before the cast, so a wide table is never copied whole."""
+    before the cast, so a wide table is never copied whole. On a mesh the
+    table is gathered whole for the lookup, as in the JAX package (a lookup
+    in a vocab/embed-sharded table would reshard its output); the sharded
+    original still feeds the head, and the backward reduce-scatters the
+    lookup's gradient into the table's layout."""
     S = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.dtype)
+    tbl = maybe_constrain(params["embed"], (None, None))
+    if isinstance(tbl, DTensor):
+        # DTensor (torch 2.11) cannot propagate the backward of an indexing
+        # lookup (index_put) with batch-sharded indices; that of
+        # F.embedding it can.
+        x = F.embedding(tokens, tbl).to(cfg.dtype)
+    else:
+        x = tbl[tokens].to(cfg.dtype)
+    x = maybe_constrain(x, ("batch", "seq_act", "embed"))
     if cfg.positional == "learned":
         x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
     return x
@@ -416,8 +510,17 @@ def layer_scan_body(cfg: TransformerConfig, positions: torch.Tensor
     package's gradient program does (tests/test_torch_train.py).
     "half_*" is resolved by ``backbone_with_aux``; any other name
     raises."""
-    def body(x, layer):
-        return _layer_body(cfg, x, layer, positions)
+    ctx = current_sharding_ctx()
+    if ctx is None:
+        def body(x, layer):
+            return _layer_body(cfg, x, layer, positions)
+    else:
+        def body(x, layer):
+            # Entered again here: autograd recomputes a checkpointed layer
+            # on its own thread (for CUDA tensors), where the caller's
+            # thread-local context is not set.
+            with sharding_ctx(*ctx):
+                return _layer_body(cfg, x, layer, positions)
 
     if not cfg.remat:
         return body
@@ -475,7 +578,7 @@ def final_hidden_and_head(params: Params, x: torch.Tensor,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return x, head.to(cfg.dtype)
+    return x, gather_for_use(head.to(cfg.dtype))
 
 
 def lm_head(params: Params, x: torch.Tensor,
@@ -503,6 +606,10 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Mean CE of logits [B,S,V] vs targets [B,S] over positions where
     ``valid`` (f32 weights) is nonzero: logits[target] - logsumexp, with
     no second [B,S,V] log-softmax tensor."""
+    # On a mesh the vocab is made whole first: DTensor's gather from a
+    # vocab-sharded operand returns a masked partial sum that its
+    # reduction then fails on.
+    logits = maybe_constrain(logits, ("batch", "seq_act", None))
     lse = torch.logsumexp(logits, dim=-1)
     at_target = logits.gather(-1, targets.long()[..., None])[..., 0]
     ll = at_target - lse
@@ -514,8 +621,8 @@ def shift_targets_valid(tokens: torch.Tensor,
     """targets/valid for the shift_inputs convention: tokens is [B,S+1],
     the forward ran on tokens[:, :-1]."""
     targets = tokens[:, 1:]
-    valid = torch.ones(targets.shape, dtype=torch.float32,
-                       device=tokens.device)
+    valid = replicated_like(torch.ones(targets.shape, dtype=torch.float32,
+                                       device=tokens.device), tokens)
     if mask is not None:
         valid = valid * mask[:, 1:].float()
     return targets, valid
@@ -527,15 +634,18 @@ def inplace_targets_valid(batch: Dict[str, torch.Tensor]):
     B, S = tokens.shape
     dev = tokens.device
     targets = torch.cat(
-        [tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype, device=dev)],
+        [tokens[:, 1:], replicated_like(
+            torch.zeros((B, 1), dtype=tokens.dtype, device=dev), tokens)],
         dim=1)
-    valid = torch.cat(
+    valid = replicated_like(torch.cat(
         [torch.ones((B, S - 1), dtype=torch.float32, device=dev),
-         torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1)
+         torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1),
+        tokens)
     mask = batch.get("mask")
     if mask is not None:
         shifted = torch.cat(
-            [mask[:, 1:], torch.zeros((B, 1), dtype=mask.dtype, device=dev)],
+            [mask[:, 1:], replicated_like(
+                torch.zeros((B, 1), dtype=mask.dtype, device=dev), mask)],
             dim=1)
         valid = valid * shifted.float()
     return targets, valid

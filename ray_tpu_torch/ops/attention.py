@@ -6,17 +6,30 @@ picks by ``RTPU_ATTN_IMPL``: ``flash`` goes to :func:`flash_attention`
 (the Hopper kernel for CUDA tensors, its plain version on the CPU), ``xla``
 to :func:`reference_attention`, and ``auto`` to the kernel for CUDA tensors
 and the reference elsewhere. On CUDA the kernel runs or the call raises;
-nothing falls back. The sequence-parallel branch waits for the distributed
-slice of the port.
+nothing falls back.
+
+Under a sharding context (a training step on a mesh) q, k and v are
+DTensors, and the chosen function runs through ``local_map`` on each rank's
+local shards: [B/(data*fsdp), S, H/tensor, D] for q, KVH/tensor heads for k
+and v. The kernels and their autograd Function see plain tensors. The
+sequence-parallel branch (a ``seq`` axis > 1: ring and Ulysses attention)
+waits for ROADMAP A4.
 """
 from __future__ import annotations
 
+import functools
+import math
 import warnings
 from typing import Optional
 
 import torch
+from torch.distributed.tensor.experimental import local_map
 
 from .. import flags
+from ..parallel.mesh import mesh_shape
+from ..parallel.sharding import (current_sharding_ctx, dtensor_mesh,
+                                 entry_axes, logical_to_mesh_spec,
+                                 placements)
 from .flash_attention import flash_attention
 
 
@@ -60,5 +73,43 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _warned_bad_impl = True
         impl = "auto"
     if impl == "flash" or (impl == "auto" and q.device.type == "cuda"):
-        return flash_attention(q, k, v, causal=causal, scale=scale)
-    return reference_attention(q, k, v, causal=causal, scale=scale)
+        fn = flash_attention
+    else:
+        fn = reference_attention
+    ctx = current_sharding_ctx()
+    if ctx is None:
+        return fn(q, k, v, causal=causal, scale=scale)
+    return _on_local_shards(fn, q, k, v, *ctx, causal=causal, scale=scale)
+
+
+_Q_SPEC = ("batch", "seq_act", "heads", None)
+_KV_SPEC = ("batch", "seq_act", "kv_heads", None)
+
+
+def _on_local_shards(fn, q, k, v, mesh, rules, *, causal, scale):
+    """``fn`` on each rank's shards: batch split over the batch axes, heads
+    over the axes ``heads`` maps to. A rank's query heads must read only
+    its own kv heads, so both head names must map to the same axes and
+    their count must divide the kv heads."""
+    shape = mesh_shape(mesh)
+    if shape["seq"] > 1:
+        raise NotImplementedError(
+            "sequence-parallel attention (a seq mesh axis > 1: ring and "
+            "Ulysses) is not ported yet (ROADMAP A4)")
+    q_axes = logical_to_mesh_spec(_Q_SPEC, rules, mesh)[2]
+    kv_axes = logical_to_mesh_spec(_KV_SPEC, rules, mesh)[2]
+    if q_axes != kv_axes:
+        raise ValueError(f"heads map to mesh axes {q_axes} and kv_heads to "
+                         f"{kv_axes}; a rank's query heads would read "
+                         f"another rank's kv heads")
+    split = math.prod(shape[a] for a in entry_axes(q_axes))
+    if k.shape[2] % split:
+        raise ValueError(f"{k.shape[2]} kv heads do not split over "
+                         f"{split} ranks of mesh axes {q_axes}")
+    qp = placements(_Q_SPEC, rules, mesh)
+    kvp = placements(_KV_SPEC, rules, mesh)
+    body = functools.partial(fn, causal=causal, scale=scale)
+    return local_map(body, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp),
+                     device_mesh=dtensor_mesh(mesh),
+                     redistribute_inputs=True)(q, k, v)

@@ -13,10 +13,19 @@ The JAX version is an XLA ``lax.scan`` with no Pallas kernel, so this is a
 ``torch.autograd.Function`` over plain PyTorch products. Numerics as the
 reference: logits and both gradients accumulate in f32 whatever the dtype
 of x and head (the operands are cast up, which is exact for bf16).
+
+On a mesh (x a DTensor) the op runs on each rank's batch shard through
+``local_map``, with the head gathered whole (see
+:func:`fused_next_token_loss`).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from ..parallel.sharding import (DEFAULT_RULES, current_sharding_ctx,
+                                 placements)
 
 
 def _pick_chunk(V: int, target: int = 4096) -> int:
@@ -105,11 +114,44 @@ def fused_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     return FusedCE.apply(x, head, targets, valid, chunk)
 
 
-def fused_next_token_loss(x: torch.Tensor, head: torch.Tensor,
-                          targets: torch.Tensor, valid: torch.Tensor,
-                          chunk: int = 0) -> torch.Tensor:
-    """[B, S, d] hidden states -> mean CE, flattened for the op."""
+def _flat_ce(x, head, targets, valid, chunk):
     B, S, d = x.shape
     return fused_ce(x.reshape(B * S, d), head,
                     targets.reshape(B * S).long(),
                     valid.reshape(B * S).float(), chunk)
+
+
+def fused_next_token_loss(x: torch.Tensor, head: torch.Tensor,
+                          targets: torch.Tensor, valid: torch.Tensor,
+                          chunk: int = 0) -> torch.Tensor:
+    """[B, S, d] hidden states -> mean CE, flattened for the op.
+
+    On a mesh (x a DTensor) each rank runs the op on its batch shard with
+    the head gathered whole, and the mean is the global one: the sum over
+    every shard's valid tokens over their global count. A mean of the
+    shards' means would weigh a shard with fewer valid tokens more. Each
+    rank's mean is rescaled by its count over the global count, so the
+    shards' results, and their gradients, sum to the global mean's."""
+    if not isinstance(x, DTensor):
+        return _flat_ce(x, head, targets, valid, chunk)
+    mesh = x.device_mesh
+    ctx = current_sharding_ctx()
+    rules = ctx[1] if ctx is not None else DEFAULT_RULES
+    rows = placements(("batch",), rules, mesh)  # dim 0 split, as x's
+    whole = (Replicate(),) * mesh.ndim
+    # Each rank's loss share, and its gradient for the whole head, sum over
+    # the batch axes; the other axes hold the same values.
+    summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in rows)
+    count = valid.float().sum().full_tensor().clamp(min=1.0)
+
+    def local(x, head, targets, valid):
+        share = valid.float().sum().clamp(min=1.0) / count
+        return _flat_ce(x, head, targets, valid, chunk) * share
+
+    loss = local_map(
+        local, out_placements=list(summed),
+        in_placements=(rows, whole, rows, rows),
+        in_grad_placements=(rows, summed, rows, rows),
+        device_mesh=mesh, redistribute_inputs=True)(x, head, targets, valid)
+    return loss.redistribute(mesh, whole)

@@ -1,10 +1,14 @@
-"""One-device training step: params + optimizer + batch -> one update.
+"""Training step: params + optimizer + batch -> one update.
 
-The counterpart of the JAX package's ``train/step.py`` on one device.
-``TrainStep`` keeps ``ShardedTrainStep``'s surface (``init``, ``step``,
-``eval_loss``) without a mesh: PyTorch runs eagerly, so there is no program
-to compile, and the backward goes through the hand-written flash kernels
-(``ops/flash_attention.py``) on CUDA tensors.
+The counterpart of the JAX package's ``train/step.py``. ``TrainStep`` runs
+on one device; ``ShardedTrainStep`` on a ``DeviceMesh``, with the params
+and the optimizer state as DTensors placed by the logical-axis rule tables
+(``parallel/sharding.py``), the JAX ``ShardedTrainStep``'s counterpart.
+PyTorch runs eagerly, so there is no program to compile: DTensor issues
+the collectives op by op (the all-gathers of FSDP, the reduce-scatters and
+all-reduces of the gradients), and the backward goes through the
+hand-written flash kernels (``ops/flash_attention.py``) on each rank's
+local shards.
 
 Two differences from the reference, by design:
 
@@ -13,16 +17,19 @@ Two differences from the reference, by design:
   ``(params, opt_state, loss)`` so a caller's loop reads the same;
 - the optimizer state is the ``torch.optim.Optimizer`` object itself.
 
-The mesh, the sharding rules and the pipeline branch of
-``transformer_train_step`` wait for the distributed slice of the port.
+The pipeline branch of ``transformer_train_step`` and meshes with a
+``pipe``, ``seq`` or ``expert`` axis > 1 wait for ROADMAP A4.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device, same_device
+from ..parallel import sharding as shd
+from ..parallel.mesh import mesh_device, mesh_shape
 
 Params = Dict[str, Any]
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
@@ -95,28 +102,173 @@ class TrainStep:
             return self._loss_fn(params, batch)
 
 
+class ShardedTrainStep:
+    """Training on a ``DeviceMesh``: the JAX ``ShardedTrainStep`` surface
+    (``init``, ``shard_batch``, ``step``, ``eval_loss``).
+
+    ``init_leaves_fn(generator, device)`` yields the params one at a time as
+    (path, tensor); ``logical_specs`` is the tree of logical axis names
+    matching them. Params are DTensors placed by ``tree_shardings(mesh,
+    logical_specs, rules)``, and the optimizer runs on them, so its state
+    takes their placements. The loss and its backward run under the
+    sharding context, where the model's ``maybe_constrain`` calls
+    redistribute its activations. Each process runs the same calls with
+    the same arguments (one process per device)."""
+
+    def __init__(self, *, init_leaves_fn: Callable[..., Iterator],
+                 loss_fn: Callable[[Params, Any], torch.Tensor],
+                 logical_specs: Params, mesh, rules: Optional[shd.Rules] = None,
+                 optimizer: Optional[OptimizerFactory] = None):
+        self.mesh = mesh
+        self.rules = rules or shd.DEFAULT_RULES
+        self.device = mesh_device(mesh)
+        self.param_shardings = shd.tree_shardings(mesh, logical_specs,
+                                                  self.rules)
+        self._init_leaves_fn = init_leaves_fn
+        self._loss_fn = loss_fn
+        self._make_optimizer = optimizer or default_optimizer
+
+    def init_opt_state(self, params: Params) -> torch.optim.Optimizer:
+        """Check that each leaf lies on the mesh in its placements, mark it
+        trainable, and build the optimizer over the leaves with its state
+        made now (``optimizer.init(params)``; a checkpoint restores into
+        it)."""
+        leaves = []
+        for path, t, s in _named(params, self.param_shardings):
+            if not (isinstance(t, DTensor) and t.device_mesh == s.mesh
+                    and tuple(t.placements) == s.placements):
+                got = (tuple(t.placements) if isinstance(t, DTensor)
+                       else type(t).__name__)
+                raise ValueError(f"param {'.'.join(path)}: {got}, the step "
+                                 f"places it {s.placements} on its mesh")
+            if not same_device(t.device, self.device):
+                raise ValueError(f"param on {t.device}, the step runs on "
+                                 f"{self.device}")
+            t.requires_grad_(True)
+            leaves.append(t)
+        opt = self._make_optimizer(leaves)
+        for t in leaves:
+            opt.state[t].update(_fresh_state(opt, t))
+        return opt
+
+    def init(self, generator: torch.Generator
+             ) -> Tuple[Params, torch.optim.Optimizer]:
+        """Random params from ``generator`` (on the step's device, seeded
+        alike on every rank), each leaf distributed before the next is
+        made: no device holds more than one whole leaf."""
+        params: Params = {"layers": {}}
+        with torch.no_grad():
+            for path, t in self._init_leaves_fn(generator, self.device):
+                s = _lookup(self.param_shardings, path)
+                (params["layers"] if path[0] == "layers"
+                 else params)[path[-1]] = s.distribute(t)
+                del t  # before the next leaf is made
+        return params, self.init_opt_state(params)
+
+    def shard_batch(self, batch: Any) -> Any:
+        """A host batch, the same on every rank, onto the mesh: the batch dim
+        split over ``data`` and ``fsdp``."""
+        return shd.shard_batch(self.mesh, batch)
+
+    def step(self, params: Params, opt_state: torch.optim.Optimizer,
+             batch: Any) -> Tuple[Params, torch.optim.Optimizer,
+                                  torch.Tensor]:
+        """One update in place; returns (params, opt_state, loss), the loss
+        a plain tensor on this rank's device, the same on every rank."""
+        opt_state.zero_grad(set_to_none=True)
+        with shd.sharding_ctx(self.mesh, self.rules):
+            loss = self._loss_fn(params, batch)
+            loss.backward()
+        for group in opt_state.param_groups:
+            for t in group["params"]:
+                # A gradient can come back in another layout (partial sums
+                # of a product, say); the update needs the param's.
+                if t.grad is not None and t.grad.placements != t.placements:
+                    t.grad = t.grad.redistribute(t.device_mesh, t.placements)
+        opt_state.step()
+        return params, opt_state, loss.detach().full_tensor()
+
+    def eval_loss(self, params: Params, batch: Any) -> torch.Tensor:
+        with torch.no_grad(), shd.sharding_ctx(self.mesh, self.rules):
+            return self._loss_fn(params, batch).full_tensor()
+
+    def state_tree(self, params: Params,
+                   opt_state: torch.optim.Optimizer) -> Dict[str, Any]:
+        """Params and optimizer state as one tree, the optimizer's per-param
+        state under the param's name: what ``Checkpoint.save_sharded``
+        saves and ``load_sharded`` restores into, in place."""
+        return {"params": params,
+                "opt_state": shd.tree_map(lambda t: opt_state.state[t],
+                                          params)}
+
+
+def _named(params: Params, shardings: Params):
+    """(path, leaf, sharding) of a param tree; the names must match."""
+    top = [k for k in params if k != "layers"]
+    if sorted(top) != sorted(k for k in shardings if k != "layers") or (
+            sorted(params.get("layers", {})) != sorted(shardings["layers"])):
+        raise ValueError("param names do not match the step's logical specs")
+    for k in top:
+        yield (k,), params[k], shardings[k]
+    for k, t in params["layers"].items():
+        yield ("layers", k), t, shardings["layers"][k]
+
+
+def _lookup(tree: Params, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _fresh_state(opt: torch.optim.Optimizer, t: torch.Tensor) -> Dict:
+    """The per-param state an Adam-family optimizer makes at its first
+    step, made at once; other optimizers keep their own lazy state."""
+    if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        return {}
+    return {"step": torch.tensor(0.0, dtype=torch.float32),
+            "exp_avg": torch.zeros_like(t),
+            "exp_avg_sq": torch.zeros_like(t)}
+
+
 def transformer_train_step(cfg, *, device: DeviceLike = None,
                            optimizer: Optional[OptimizerFactory] = None,
                            shift_inputs: bool = False, mesh: Any = None,
-                           rules: Any = None,
-                           pipeline_microbatches: Optional[int] = None
-                           ) -> TrainStep:
-    """Wire a ``models.transformer`` config into a :class:`TrainStep`.
-    ``shift_inputs`` selects the [B, S+1]-tokens convention (see
-    ``loss_fn``). ``mesh``, ``rules`` and ``pipeline_microbatches`` are the
-    reference's distributed options and raise NotImplementedError here."""
+                           rules: Optional[shd.Rules] = None,
+                           pipeline_microbatches: Optional[int] = None):
+    """Wire a ``models.transformer`` config into a :class:`TrainStep`, or,
+    with ``mesh``, a :class:`ShardedTrainStep` over it with ``rules``
+    (default ``DEFAULT_RULES``). ``shift_inputs`` selects the [B,
+    S+1]-tokens convention (see ``loss_fn``). A mesh with a ``pipe``,
+    ``seq`` or ``expert`` axis > 1, and ``pipeline_microbatches``, raise
+    NotImplementedError (ROADMAP A4)."""
     from ..models import transformer as tfm
 
-    if (mesh is not None or rules is not None
-            or pipeline_microbatches is not None):
+    if pipeline_microbatches is not None:
         raise NotImplementedError(
-            "the mesh, sharding rules and pipeline of transformer_train_step "
-            "are not ported yet (ROADMAP queue A3/A4); the port trains on "
-            "one device")
+            "the pipeline of transformer_train_step is not ported yet "
+            "(ROADMAP A4)")
+    loss = lambda params, batch: tfm.loss_fn(  # noqa: E731
+        params, batch, cfg, shift_inputs=shift_inputs)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("a mesh decides the device; pass one or the "
+                             "other")
+        wide = {a: n for a, n in mesh_shape(mesh).items()
+                if a in ("pipe", "seq", "expert") and n > 1}
+        if wide:
+            raise NotImplementedError(
+                f"mesh axes {wide}: pipeline, sequence and expert "
+                f"parallelism are not ported yet (ROADMAP A4); the port "
+                f"trains over data, fsdp and tensor")
+        return ShardedTrainStep(
+            init_leaves_fn=lambda gen, dev: tfm.init_leaves(cfg, gen, dev),
+            loss_fn=loss, logical_specs=tfm.param_logical_specs(cfg),
+            mesh=mesh, rules=rules, optimizer=optimizer)
+    if rules is not None:
+        raise ValueError("sharding rules need a mesh")
     return TrainStep(
         init_params_fn=lambda gen, dev: tfm.init_params(cfg, gen, dev),
-        loss_fn=lambda params, batch: tfm.loss_fn(
-            params, batch, cfg, shift_inputs=shift_inputs),
+        loss_fn=loss,
         device=device,
         optimizer=optimizer,
     )

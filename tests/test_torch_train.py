@@ -297,8 +297,9 @@ def test_train_step_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tstep.transformer_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="one device"):
-        tstep.transformer_train_step(cfg, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        tstep.transformer_train_step(cfg, device="cpu",
+                                     pipeline_microbatches=2)
     ts = tstep.transformer_train_step(cfg, device="cpu")
     with pytest.raises(ValueError, match="meta"):
         ts.init_opt_state({"embed": torch.empty(2, device="meta"),
