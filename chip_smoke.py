@@ -19,7 +19,18 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    cluster), head dims 32, 64 and 128, sequence lengths with a ragged tail
    and below one tile, q/k/v as strided views of a fused projection and as
    views whose rows past S hold NaN, every prefill bucket the serving slice
-   runs and the training shape.
+   runs, the training shape and the ring's 2048-token chunks of
+   Llama-3-8B's attention, causal and not. Then ``sp_check``: the ring's
+   and Ulysses' schedules on one card, one sequence of 8192 tokens at
+   Llama-3-8B's attention width (32/8 heads, D=128) in 4 chunks, the
+   ranks simulated in this process by the ring's own schedule functions
+   (the hop a list rotation): o, lse and dq/dk/dv against K1/K2/K3 over
+   the whole sequence (relative L2 2e-2), one chunk from the past with
+   the global lse against the plain versions, and the launches (10
+   K1/K2/K3 causal, 16 not; Ulysses 4 K1 on 8 query and 2 kv heads each);
+   and at dist_train's ring shape, the ring and the one-device kernels
+   against the plain attention in f32 (the ring no further than 1.5
+   times the kernels).
 3. ``slice``: the main path. Llama-3-8B at full width and depth (bf16
    weights, random from a seed) behind a ``ContinuousBatchingEngine`` with
    4 slots, ticking on its ``run_forever`` thread; 6 greedy requests, the
@@ -39,6 +50,12 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    ln(vocab), and that each step launched K1 48 times (24 layers, and
    again under "dots" remat) and K2 and K3 24 times each. Prints step ms,
    tokens/s, an MFU-style share, peak memory, and one profiled step.
+   Then ``moe_train``: the same model with 8 experts, top-2 (capacity
+   1.25) in place of its FFN, at full width and depth: 5 AdamW steps with
+   48/24/24 launches a step, finite and falling losses, aux per layer in
+   (0.1, 10); step ms, tokens/s, peak memory, one profiled step; then its
+   weights in bf16 serve one 2048-token prefill (24 K1 launches) and 16
+   greedy decode steps (finite logits, tokens in range).
 6. ``dist_train``: the mesh training path. The same model, batch and
    seed through ``transformer_train_step(cfg, mesh=make_mesh(
    MeshSpec(fsdp=-1)), rules=RULES_FSDP)``: params and AdamW state as
@@ -50,7 +67,17 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    on one card; within 1e-3 relative on more, where the batch shards'
    gradients are summed in another order). Prints step ms beside
    ``train``'s (the host cost of DTensor dispatch), peak memory per rank
-   and one profiled step.
+   and one profiled step. With 2-4 cards the same ranks then run, one
+   after another in that process group, ``seq=world`` under ``RULES_TP``
+   with the ring and with Ulysses (4096 tokens a row, 2 rows),
+   ``expert=world`` on ``moe_train``'s model and ``pipe=world`` with
+   2 x world microbatches: each against the one-device step (the first
+   step's gradients per leaf, which rank 0 computes, and the losses),
+   within bounds taken from the same step with the plain attention (see
+   DIST_FLOOR_FACTOR; the ring's one-device step runs the ring's schedule
+   on one card), and each rank's launches against its schedule's
+   (rank r of the causal ring runs r + 1 chunks a layer). On one card they
+   print one line saying they need 2 or more.
 7. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
    batch 2, seq 1024 with the kernels (bf16), with the plain attention
    (bf16) and with the plain attention in f32, compared per leaf.
@@ -58,7 +85,8 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: device time on contiguous copies, each backend that takes
-   them pinned in turn, the fastest reported) and their bounds.
+   them pinned in turn, the fastest reported) and their bounds; and K1,
+   K2 and K3 without a mask on the ring's 2048-token chunk.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
@@ -67,9 +95,10 @@ Without a CUDA card, or outside a checkout of the repo, it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
-import os
+import math
 import socket
 import statistics
 import subprocess
@@ -103,9 +132,27 @@ TRAIN_BATCH, TRAIN_SEQ, WARM_STEPS, TIMED_STEPS = 8, 1024, 2, 10
 # against train's first ones. On one card the mesh path runs the same bf16
 # model on the same whole batch, so its losses must be train's exactly; on
 # more it sums the batch shards' gradients in another order, and they must
-# agree within DIST_LOSS_RTOL (relative).
+# agree within DIST_LOSS_RTOL (relative). The seq, expert and pipe layouts
+# are held to that for their first two losses (the forward, and the first
+# AdamW update, which follows the gradients' signs). Their later losses,
+# and every layout's first-step gradients per leaf (relative L2), are held
+# to a bound read in the same run: each reference's one-device step is run
+# again with the plain attention in place of the kernels, and a layout may
+# lie at most DIST_FLOOR_FACTOR times as far from the one-device step as
+# that run does (a loss never less than DIST_LOSS_RTOL; a gradient never
+# more than DIST_GRAD_CAP, so a sum where a mean belongs, or a term counted
+# on every pipe or expert rank, which moves a leaf by a world-size factor,
+# 0.5 or more, always shows). A layout changes only the order of its
+# roundings (the shards sum in another order), as the plain attention
+# does; AdamW's second step divides by the gradients' magnitudes, so from
+# the third loss on such a change grows. The ring's one-device step runs
+# the ring's own schedule on one card (``simulated_ring``): its chunks
+# round o to bf16 before the f32 merge, a change of rounding that moved
+# the third loss 1.83e-3 (3.4 times the plain attention's distance) from
+# the whole-sequence kernels on four H100 80GB HBM3 cards at 700 W;
+# sp_check holds the ring to the whole-sequence kernels op by op.
 DIST_WARM_STEPS, DIST_TIMED_STEPS, DIST_MAX_RANKS = 2, 3, 4
-DIST_LOSS_RTOL = 1e-3
+DIST_LOSS_RTOL, DIST_FLOOR_FACTOR, DIST_GRAD_CAP = 1e-3, 2.0, 0.25
 # train_grad_check: one step's gradients, per leaf. The kernel run against
 # the plain-attention bf16 run (relative L2), and the kernel run may lie at
 # most 1.5 times as far from the f32 run as the plain bf16 run does.
@@ -120,6 +167,27 @@ TRAIN_GRAD_F32_RATIO = 1.5
 # the same prefill in f32 as the plain attention's bf16 run does.
 LOGITS_REL_L2 = 5e-2
 LOGITS_F32_RATIO = 1.5
+# sp_check: one sequence of SP_SEQ tokens in SP_RANKS chunks at Llama-3-8B's
+# attention width, the ring and Ulysses schedules simulated on one card,
+# against K1/K2/K3 over the whole sequence: relative L2 of o, dq, dk and dv
+# (the kernel_check bound of K2/K3; the ring merges chunks in f32 and its
+# backward rounds p and ds to bf16 per chunk as the whole-sequence kernels
+# do per tile), lse within LSE_ATOL.
+SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
+SP_REL_L2 = 2e-2
+# moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
+# 1.25) at full width and depth: 2 warm-up and 3 timed AdamW steps; then
+# the same weights in bf16 serve one PREFILL-token prefill and SERVE_DECODE
+# greedy decode steps. The aux loss per layer must lie in (0.1, 10), as
+# tests/test_moe.py holds it (about 1 at uniform routing).
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 3
+MOE_PREFILL, MOE_DECODE = 2048, 16
+# dist_train's layouts past fsdp, with 2-4 cards: seq (ring, Ulysses) at
+# DIST_LONG_SEQ tokens a row and DIST_LONG_BATCH rows, expert (the MoE
+# model), pipe (2 x world microbatches).
+DIST_LONG_SEQ, DIST_LONG_BATCH = 4096, 2
+DIST_LAYOUTS = ("fsdp", "seq_ring", "seq_ulysses", "expert", "pipe")
 
 
 def emit(phase: str, **fields) -> None:
@@ -316,6 +384,9 @@ def phase_kernel_check_bwd(fa, device):
               for H, KVH, D in ((32, 8, 128), (16, 16, 64), (4, 2, 32))
               for causal in (True, False)]
     cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
+    # The ring's chunk shapes at Llama-3-8B's width, causal and not.
+    cases += [(1, SP_SEQ // SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM,
+               causal, "") for causal in (True, False)]
     rows = []
     worst = {"dq": 0.0, "dkv": 0.0}
     for i, (B, S, H, KVH, D, causal, fused) in enumerate(cases):
@@ -350,6 +421,7 @@ def phase_slice(device):
     import numpy as np
     import torch
 
+    from ray_tpu_torch import flags
     from ray_tpu_torch.models.configs import llama3_8b
     from ray_tpu_torch.models.generate import prefill
     from ray_tpu_torch.models.transformer import init_params
@@ -459,19 +531,12 @@ def phase_slice(device):
     tokens = torch.zeros((1, S_ref), dtype=torch.int64, device=device)
     tokens[0, :n_ref] = torch.tensor(prompts[PROMPT_LENS.index(700)])
     length = torch.tensor([n_ref], device=device)
-    old = os.environ.get("RTPU_ATTN_IMPL")
-    os.environ["RTPU_ATTN_IMPL"] = "xla"
-    try:
+    with flags.scoped({"RTPU_ATTN_IMPL": "xla"}):
         plain_logits = prefill(params, tokens, cfg, S_ref,
                                lengths=length)[0][0]
         f32_logits = prefill(params, tokens,
                              dataclasses.replace(cfg, dtype=torch.float32),
                              S_ref, lengths=length)[0][0]
-    finally:
-        if old is None:
-            os.environ.pop("RTPU_ATTN_IMPL")
-        else:
-            os.environ["RTPU_ATTN_IMPL"] = old
 
     k1_vs_plain = rel_l2(k1_logits, plain_logits)
     k1_vs_f32 = rel_l2(k1_logits, f32_logits)
@@ -644,8 +709,6 @@ def _train_tokens(cfg, B, S, device):
 
 def phase_train(fa, device):
     """The training main path: bench_350m, full width and depth."""
-    import math
-
     import torch
 
     from ray_tpu_torch.models.configs import bench_350m
@@ -715,76 +778,464 @@ def phase_train(fa, device):
     return launches, losses, step_s
 
 
+def _count_delta(fa, before):
+    now = _launch_counts(fa)
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_sp_check(fa, device):
+    """The ring's and Ulysses' schedules on one card: one sequence of
+    SP_SEQ tokens at Llama-3-8B's attention width in SP_RANKS chunks, the
+    ranks simulated in this process (the ring's own schedule functions,
+    the hop a list rotation), against K1/K2/K3 over the whole sequence."""
+    import torch
+
+    from ray_tpu_torch.ops.ring_attention import (ring_bwd, ring_fwd,
+                                                  rotate_hop)
+
+    B, S, H, KVH, D = 1, SP_SEQ, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM
+    n, chunk, scale = SP_RANKS, SP_SEQ // SP_RANKS, SP_HEAD_DIM ** -0.5
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def t(heads):
+        return torch.randn((B, S, heads, D), generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    def split(x):
+        return [x[:, r * chunk:(r + 1) * chunk] for r in range(n)]
+
+    rows, failures = [], []
+    for causal in (True, False):
+        q, k, v, do = t(H), t(KVH), t(KVH), t(H)
+        o_ref, lse_ref = fa.flash_attention_fwd(q, k, v, scale, causal)
+        grads_ref = fa.flash_bwd_core(q, k, v, do, lse_ref,
+                                      fa.attention_delta(do, o_ref),
+                                      scale=scale, causal=causal)
+        ranks = list(range(n))
+
+        def fwd():
+            return ring_fwd(split(q), split(k), split(v), ranks, n,
+                            rotate_hop, causal=causal, scale=scale)
+
+        before = _launch_counts(fa)
+        os_, lses = fwd()
+        fwd_launches = _count_delta(fa, before)
+        deltas = [fa.attention_delta(d, o) for d, o in zip(split(do), os_)]
+
+        def bwd():
+            return ring_bwd(split(q), split(k), split(v), split(do), lses,
+                            deltas, ranks, n, rotate_hop, causal=causal,
+                            scale=scale)
+
+        before = _launch_counts(fa)
+        grads = bwd()
+        bwd_launches = _count_delta(fa, before)
+        want = n * (n + 1) // 2 if causal else n * n
+        row = {"causal": causal, "o_rel_l2": rel_l2(torch.cat(os_, 1),
+                                                    o_ref),
+               "lse_max_abs": float((torch.cat(lses, 2) - lse_ref).abs()
+                                    .max()),
+               "launches_fwd": fwd_launches, "launches_bwd": bwd_launches,
+               "launches_expected": want}
+        for name, g, w in zip(("dq", "dk", "dv"), grads, grads_ref):
+            row[name + "_rel_l2"] = rel_l2(torch.cat(g, 1), w)
+        # One chunk from the past with the global lse and delta of its
+        # rows: K1 (no mask), K2 and K3 against their plain versions.
+        q1, k0, v0, do1 = (split(x)[1] for x in (q, k, v, do))
+        o_c, lse_c = fa.flash_attention_fwd(q1, k0, v0, scale, False)
+        po, plse = fa.flash_attention_fwd_plain(q1, k0, v0, scale, False)
+        o_c, po = o_c.float(), po.float()
+        row["chunk_o_max_abs"] = float((o_c - po).abs().max())
+        row["chunk_o_ok"] = bool(
+            ((o_c - po).abs() <= O_ATOL + O_RTOL * po.abs()).all())
+        row["chunk_lse_max_abs"] = float((lse_c - plse).abs().max())
+        chunk_args = (q1, k0, v0, do1, lses[1], deltas[1])
+        got = fa.flash_bwd_core(*chunk_args, scale=scale, causal=False)
+        plain = fa.flash_attention_bwd_plain(*chunk_args, scale, False)
+        for name, g, w in zip(("dq", "dk", "dv"), got, plain):
+            row["chunk_" + name + "_rel_l2"] = rel_l2(g, w)
+        # Ulysses: each simulated rank runs K1 over the whole sequence for
+        # its H/n query heads and KVH/n kv heads.
+        hq, hk = H // n, KVH // n
+        before = _launch_counts(fa)
+        o_u = torch.cat([fa.flash_attention_fwd(
+            q[:, :, r * hq:(r + 1) * hq], k[:, :, r * hk:(r + 1) * hk],
+            v[:, :, r * hk:(r + 1) * hk], scale, causal)[0]
+            for r in range(n)], 2)
+        row["ulysses_launches"] = _count_delta(fa, before)["flash_fwd"]
+        row["ulysses_o_rel_l2"] = rel_l2(o_u, o_ref)
+        # Times: the simulated ring (every rank's chunks in turn on this
+        # card, no hop cost) beside the one-device kernels.
+        row["ring_fwd_ms"] = cuda_ms(fwd, iters=3, warmup=1)
+        row["one_device_k1_ms"] = cuda_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, scale, causal), iters=3,
+            warmup=1)
+        row["ring_bwd_ms"] = cuda_ms(bwd, iters=3, warmup=1)
+        row["one_device_k2_k3_ms"] = cuda_ms(
+            lambda: fa.flash_bwd_core(q, k, v, do, lse_ref,
+                                      fa.attention_delta(do, o_ref),
+                                      scale=scale, causal=causal),
+            iters=3, warmup=1)
+        rows.append(row)
+        rels = [row[k] for k in row if k.endswith("_rel_l2")]
+        if not (max(rels) <= SP_REL_L2 and row["lse_max_abs"] <= LSE_ATOL
+                and row["chunk_lse_max_abs"] <= LSE_ATOL
+                and row["chunk_o_ok"]
+                and all(math.isfinite(x) for x in rels)):
+            failures.append(f"causal={causal}: errors {row}")
+        if (fwd_launches != dict(flash_fwd=want, flash_bwd_dq=0,
+                                 flash_bwd_dkv=0)
+                or bwd_launches != dict(flash_fwd=0, flash_bwd_dq=want,
+                                        flash_bwd_dkv=want)
+                or row["ulysses_launches"] != n):
+            failures.append(f"causal={causal}: launches {row}")
+    long_row = ring_against_f32(fa, device)
+    if not long_row["ok"]:
+        failures.append(f"ring against f32: {long_row}")
+    emit("sp_check", ok=not failures, failures=failures, B=B, S=S, H=H,
+         KVH=KVH, D=D, ranks=n, chunk=chunk, rel_l2_tol=SP_REL_L2,
+         lse_atol=LSE_ATOL, rows=rows, train_shape=long_row)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def ring_against_f32(fa, device):
+    """The ring at dist_train's long-sequence shape (bench_350m's heads,
+    DIST_LONG_BATCH x DIST_LONG_SEQ in SP_RANKS chunks, causal), simulated
+    on one card, and the one-device kernels, each against the plain
+    attention in f32 on the same bf16 inputs: the ring's o and dq/dk/dv
+    may lie at most TRAIN_GRAD_F32_RATIO times as far from f32 as the
+    kernels' do."""
+    import torch
+
+    from ray_tpu_torch.ops.ring_attention import (ring_bwd, ring_fwd,
+                                                  rotate_hop)
+
+    B, S, H, D, n = DIST_LONG_BATCH, DIST_LONG_SEQ, 16, 64, SP_RANKS
+    chunk, scale = S // n, D ** -0.5
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def split(x):
+        return [x[:, r * chunk:(r + 1) * chunk] for r in range(n)]
+
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+    kernel = (o,) + fa.flash_bwd_core(q, k, v, do, lse,
+                                      fa.attention_delta(do, o),
+                                      scale=scale, causal=True)
+    os_, lses = ring_fwd(split(q), split(k), split(v), range(n), n,
+                         rotate_hop, causal=True, scale=scale)
+    deltas = [fa.attention_delta(d, o_c) for d, o_c in zip(split(do), os_)]
+    ring = (torch.cat(os_, 1),) + tuple(torch.cat(g, 1) for g in ring_bwd(
+        split(q), split(k), split(v), split(do), lses, deltas, range(n), n,
+        rotate_hop, causal=True, scale=scale))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    of, lsef = fa.flash_attention_fwd_plain(qf, kf, vf, scale, True)
+    f32 = (of,) + fa.flash_attention_bwd_plain(
+        qf, kf, vf, dof, lsef, fa.attention_delta(dof, of), scale, True)
+    row = {"B": B, "S": S, "H": H, "D": D, "ranks": n,
+           "ratio_tol": TRAIN_GRAD_F32_RATIO, "ok": True}
+    for name, r, kk, f in zip(("o", "dq", "dk", "dv"), ring, kernel, f32):
+        row[name] = {"ring_vs_f32": rel_l2(r, f),
+                     "kernels_vs_f32": rel_l2(kk, f),
+                     "ring_vs_kernels": rel_l2(r, kk)}
+        row["ok"] &= (row[name]["ring_vs_f32"]
+                      <= TRAIN_GRAD_F32_RATIO * row[name]["kernels_vs_f32"])
+    return row
+
+
+def moe_config(**overrides):
+    from ray_tpu_torch.models.configs import bench_350m
+
+    return bench_350m(remat=True, remat_policy="dots",
+                      moe_num_experts=MOE_EXPERTS,
+                      moe_experts_per_token=MOE_TOP_K, **overrides)
+
+
+def phase_moe_train(fa, device):
+    """The MoE model trains (full width and depth, 8 experts, top-2), then
+    serves in bf16: one prefill and greedy decode steps."""
+    import torch
+
+    from ray_tpu_torch.models.generate import _decode, prefill
+    from ray_tpu_torch.models.transformer import forward_with_aux
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    cfg = moe_config()
+    ts = transformer_train_step(cfg, device=device, shift_inputs=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(SEED))
+    batch = {"tokens": _train_tokens(cfg, TRAIN_BATCH, TRAIN_SEQ, device)}
+    losses = []
+    _zero_launch_counts(fa)  # count the main path alone
+    for _ in range(MOE_WARM_STEPS):
+        params, opt, loss = ts.step(params, opt, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_TIMED_STEPS):
+        params, opt, loss = ts.step(params, opt, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_TIMED_STEPS
+    launches = _launch_counts(fa)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    losses = [float(x) for x in losses]
+    busy, top = _device_profile(lambda: ts.step(params, opt, batch))
+    with torch.no_grad():
+        _, aux = forward_with_aux(params, batch["tokens"][:, :-1], cfg)
+    aux_per_layer = float(aux) / cfg.n_layers
+
+    steps = MOE_WARM_STEPS + MOE_TIMED_STEPS
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    failures = []
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"non-finite loss: {losses}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"loss did not fall: {losses}")
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want}")
+    if not 0.1 < aux_per_layer < 10.0:
+        failures.append(f"aux per layer {aux_per_layer} not in (0.1, 10)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    expert_params = (cfg.n_layers * MOE_EXPERTS * 3 * cfg.d_model
+                     * cfg.ff_dim)
+    train = dict(
+        ok=not failures, failures=failures, model="bench_350m+moe",
+        n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.ff_dim,
+        experts=MOE_EXPERTS, top_k=MOE_TOP_K,
+        capacity_factor=cfg.moe_capacity_factor,
+        num_params=cfg.num_params(), expert_params=expert_params,
+        remat_policy=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        warm_steps=MOE_WARM_STEPS, timed_steps=MOE_TIMED_STEPS,
+        losses=losses, aux_per_layer=aux_per_layer, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+        peak_mem_gib=peak_gib,
+        profile={"busy_ms": busy, "unprofiled_ms": step_s * 1e3,
+                 "idle_share": 1 - busy / (step_s * 1e3) if busy else None,
+                 "top_kernels_ms": top[:10]})
+    if failures:
+        emit("moe_train", **train)
+        raise AssertionError("; ".join(failures))
+
+    # The same weights in bf16 serve: one prefill, then greedy decode.
+    del opt, ts
+    serve_params = {k: v.detach().to(torch.bfloat16) if k != "layers"
+                    else {n: w.detach().to(torch.bfloat16)
+                          for n, w in v.items()}
+                    for k, v in params.items()}
+    del params
+    gc_collect()
+    rng = torch.Generator(device=device).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, MOE_PREFILL),
+                           generator=rng, device=device)
+    fa.flash_attention_fwd.launches = 0  # count the main path alone
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(serve_params, prompt, cfg,
+                                MOE_PREFILL + MOE_DECODE)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        finite = torch.isfinite(logits).all()
+        out = [logits.argmax(-1)]
+        t0 = time.perf_counter()
+        for _ in range(MOE_DECODE):
+            logits, cache = _decode(serve_params, cache, out[-1], cfg)
+            finite = finite & torch.isfinite(logits).all()
+            out.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / MOE_DECODE
+    serve_launches = fa.flash_attention_fwd.launches
+    tokens_out = torch.cat(out).tolist()
+    if not bool(finite):
+        failures.append("non-finite serving logits")
+    if not all(0 <= x < cfg.vocab_size for x in tokens_out):
+        failures.append(f"tokens out of range: {tokens_out}")
+    if serve_launches != cfg.n_layers:
+        failures.append(f"prefill launched K1 {serve_launches} times, "
+                        f"expected {cfg.n_layers}")
+    train.update(ok=not failures, failures=failures, serve={
+        "prefill_tokens": MOE_PREFILL, "prefill_ms": prefill_ms,
+        "decode_steps": MOE_DECODE, "decode_ms_per_step": decode_ms,
+        "tokens": tokens_out, "k1_launches": serve_launches})
+    emit("moe_train", **train)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, serve_launches, losses
+
+
+def gc_collect():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
 
 
-def dist_train_rank(rank, world, addr, device_type, cfg, batch, seq,
-                    results=None):
-    """One rank of ``dist_train``: join the world, train on the fsdp mesh,
-    return (or put on ``results``) this rank's numbers. Launch counts are
-    read around the steps alone."""
+def dist_layouts(world, names=DIST_LAYOUTS, **cfg_overrides):
+    """dist_train's layouts: name -> (mesh axes, rules, config, batch,
+    seq, environment flags, pipeline microbatches)."""
+    from ray_tpu_torch.models.configs import bench_350m
+
+    dense = dict(remat=True, remat_policy="dots", **cfg_overrides)
+    table = {
+        "fsdp": (dict(fsdp=-1), "RULES_FSDP", bench_350m(**dense),
+                 TRAIN_BATCH, TRAIN_SEQ, {}, None),
+        "seq_ring": (dict(seq=-1), "RULES_TP",
+                     bench_350m(max_seq_len=DIST_LONG_SEQ, **dense),
+                     DIST_LONG_BATCH, DIST_LONG_SEQ,
+                     {"RTPU_SP_MODE": "ring"}, None),
+        "seq_ulysses": (dict(seq=-1), "RULES_TP",
+                        bench_350m(max_seq_len=DIST_LONG_SEQ, **dense),
+                        DIST_LONG_BATCH, DIST_LONG_SEQ,
+                        {"RTPU_SP_MODE": "ulysses"}, None),
+        "expert": (dict(expert=-1), "RULES_TP", moe_config(**cfg_overrides),
+                   TRAIN_BATCH, TRAIN_SEQ, {}, None),
+        "pipe": (dict(pipe=-1), "RULES_TP", bench_350m(**dense),
+                 TRAIN_BATCH, TRAIN_SEQ, {}, 2 * world),
+    }
+    return {n: table[n] for n in names}
+
+
+def _expected_launches(name, layout, mesh, steps):
+    """K1/K2/K3 launches a rank makes in ``steps`` steps: "dots" remat
+    runs each layer's forward twice. A causal ring's rank r runs K1 on
+    r + 1 chunks a layer; a pipeline stage runs its L/P layers once a
+    microbatch."""
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+
+    cfg, micro = layout[2], layout[6]
+    per = cfg.n_layers
+    if name == "seq_ring":
+        per *= mesh.get_local_rank("seq") + 1
+    if name == "pipe":
+        per = per // mesh_shape(mesh)["pipe"] * micro
+    return {"flash_fwd": 2 * per * steps, "flash_bwd_dq": per * steps,
+            "flash_bwd_dkv": per * steps}
+
+
+def _run_dist_layout(name, layout, device_type, check_grads):
+    """One layout on this rank: warm-up and timed steps, launches read
+    around the steps alone; with ``check_grads``, the first step's
+    gradients against the one-device step's, and the one-device step with
+    the plain attention against the same (both measured on rank 0)."""
     import torch
     import torch.distributed as dist
 
+    from ray_tpu_torch import flags, parallel
     from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.parallel import (RULES_FSDP, MeshBootstrap, MeshSpec,
-                                        make_mesh)
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
     from ray_tpu_torch.train.step import transformer_train_step
+
+    spec, rules, cfg, batch, seq, env, micro = layout
+    cuda = device_type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    with flags.scoped(env):
+        mesh = make_mesh(MeshSpec(**spec), device_type)
+        ts = transformer_train_step(cfg, mesh, rules=getattr(parallel, rules),
+                                    shift_inputs=True,
+                                    pipeline_microbatches=micro)
+        device = ts.device
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params, opt = ts.init(gen)
+        tokens = _train_tokens(cfg, batch, seq, device)
+        sharded = ts.shard_batch({"tokens": tokens})
+        losses, first_grads = [], None
+        _zero_launch_counts(fa)  # count the main path alone
+        for _ in range(DIST_WARM_STEPS):
+            params, opt, loss = ts.step(params, opt, sharded)
+            losses.append(loss)
+            if check_grads and first_grads is None:
+                first_grads = _leaf_grads(params)
+                if rank != 0:
+                    first_grads = {}
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_TIMED_STEPS):
+            params, opt, loss = ts.step(params, opt, sharded)
+            losses.append(loss)
+        if cuda:
+            torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / DIST_TIMED_STEPS
+        launches = _launch_counts(fa)
+        out = {"losses": [float(x) for x in losses], "step_s": step_s,
+               "launches": launches, "launches_expected": _expected_launches(
+                   name, layout, mesh, DIST_WARM_STEPS + DIST_TIMED_STEPS),
+               "local_tokens": tuple(sharded["tokens"].to_local().shape),
+               "placements": {k: repr(tuple(v.placements)) for k, v in
+                              params["layers"].items()}}
+        if cuda:
+            out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(device)
+                                   / 2 ** 30)
+        if cuda and name == "fsdp":
+            busy, top = _device_profile(
+                lambda: ts.step(params, opt, sharded))
+            # NCCL work shows twice (its "nccl:" annotation and its
+            # kernel), and a collective's kernel waits for its peers:
+            # it is reported apart, and compute alone is busy time.
+            nccl = sum(ms for k, ms in top if k.startswith("ncclDev"))
+            busy -= sum(ms for k, ms in top if k.startswith("nccl"))
+            out["profile"] = {
+                "compute_busy_ms": busy, "nccl_kernel_ms": nccl,
+                "unprofiled_ms": step_s * 1e3,
+                "idle_share": 1 - busy / (step_s * 1e3) if busy else None,
+                "top_kernels_ms": top[:12]}
+    del ts, params, opt, sharded
+    if cuda:
+        gc_collect()
+    if check_grads:
+        # Rank 0 takes the one-device step's first gradients on its card,
+        # with the kernels (the ring: its schedule) and with the plain
+        # attention, and compares; the others wait.
+        if rank == 0:
+            ref = one_device_grads(cfg, batch, seq, device,
+                                   ring=_ring_chunks(name, world))
+            out["grad_rel_l2"] = _rel_l2_by_leaf(first_grads, ref)
+            first_grads = None
+            if cuda:
+                gc_collect()
+            plain = one_device_grads(cfg, batch, seq, device, impl="xla")
+            out["grad_floor_rel_l2"] = _rel_l2_by_leaf(plain, ref)
+            del ref, plain
+        del first_grads
+        if cuda:
+            gc_collect()
+        dist.barrier()
+    return out
+
+
+def dist_train_rank(rank, world, addr, device_type, layouts, results=None):
+    """One rank of ``dist_train``: join the world, run every layout in
+    turn in that one process group, return (or put on ``results``) this
+    rank's numbers."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshBootstrap
 
     try:
         MeshBootstrap(addr, world, rank, local_rank=rank,
                       device_type=device_type).initialize()
         try:
-            mesh = make_mesh(MeshSpec(fsdp=-1), device_type)
-            ts = transformer_train_step(cfg, mesh=mesh, rules=RULES_FSDP,
-                                        shift_inputs=True)
-            device = ts.device
-            cuda = device.type == "cuda"
-            if cuda:
-                torch.cuda.reset_peak_memory_stats(device)
-            gen = torch.Generator(device=device).manual_seed(SEED)
-            params, opt = ts.init(gen)
-            tokens = _train_tokens(cfg, batch, seq, device)
-            sharded = ts.shard_batch({"tokens": tokens})
-            local_batch = tuple(sharded["tokens"].to_local().shape)
-            losses = []
-            _zero_launch_counts(fa)  # count the main path alone
-            for _ in range(DIST_WARM_STEPS):
-                params, opt, loss = ts.step(params, opt, sharded)
-                losses.append(loss)
-            if cuda:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(DIST_TIMED_STEPS):
-                params, opt, loss = ts.step(params, opt, sharded)
-                losses.append(loss)
-            if cuda:
-                torch.cuda.synchronize()
-            step_s = (time.perf_counter() - t0) / DIST_TIMED_STEPS
-            launches = _launch_counts(fa)
-            out = {"rank": rank, "world": world, "losses":
-                   [float(x) for x in losses], "step_s": step_s,
-                   "launches": launches, "local_tokens": local_batch,
-                   "placements": {k: repr(tuple(v.placements)) for k, v in
-                                  params["layers"].items()}}
-            if cuda:
-                out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(device)
-                                       / 2 ** 30)
-                busy, top = _device_profile(
-                    lambda: ts.step(params, opt, sharded))
-                # NCCL work shows twice (its "nccl:" annotation and its
-                # kernel), and a collective's kernel waits for its peers:
-                # it is reported apart, and compute alone is busy time.
-                nccl = sum(ms for k, ms in top if k.startswith("ncclDev"))
-                busy -= sum(ms for k, ms in top if k.startswith("nccl"))
-                out["profile"] = {
-                    "compute_busy_ms": busy, "nccl_kernel_ms": nccl,
-                    "unprofiled_ms": step_s * 1e3,
-                    "idle_share": 1 - busy / (step_s * 1e3) if busy else None,
-                    "top_kernels_ms": top[:12]}
+            # One rank runs the one-device step alone: a layout's
+            # gradients are checked with more ranks than one.
+            out = {"rank": rank, "world": world, "layouts": {
+                name: _run_dist_layout(name, layout, device_type, world > 1)
+                for name, layout in layouts.items()}}
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -798,76 +1249,288 @@ def dist_train_rank(rank, world, addr, device_type, cfg, batch, seq,
     return out
 
 
-def phase_dist_train(device, train_losses, train_step_s):
-    """The mesh training path: bench_350m on an fsdp mesh of every visible
-    card (up to 4)."""
+def run_dist_ranks(world, device_type, layouts, timeout_s=900):
+    """``dist_train_rank`` on ``world`` spawned processes (one card each),
+    or in this process for a world of one; rank-ordered results."""
     import multiprocessing
 
+    addr = f"localhost:{_free_port()}"
+    if world == 1:
+        return [dist_train_rank(0, 1, addr, device_type, layouts)]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=dist_train_rank,
+                         args=(r, world, addr, device_type, layouts,
+                               results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = [results.get(timeout=timeout_s) for _ in range(world)]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise RuntimeError("a dist_train rank failed:\n" + errors[0])
+    return sorted(ranks, key=lambda r: r["rank"])
+
+
+def _ring_chunks(name, world):
+    """The chunks of the ring schedule a layout's one-device reference
+    runs: the ring layout's, else None (the whole-sequence kernels)."""
+    return world if name == "seq_ring" else None
+
+
+def simulated_ring(size):
+    """Attention with the ring's schedule on one card: the sequence in
+    ``size`` chunks, every rank simulated in this process (the hop a list
+    rotation), forward and backward through the ring's own ``ring_fwd`` and
+    ``ring_bwd``, as ``size`` cards run them."""
     import torch
 
-    from ray_tpu_torch.models.configs import bench_350m
+    from ray_tpu_torch.ops.flash_attention import attention_delta
+    from ray_tpu_torch.ops.ring_attention import (ring_bwd, ring_fwd,
+                                                  rotate_hop)
 
-    cfg = bench_350m(remat=True, remat_policy="dots")
+    ranks = range(size)
+
+    def split(x):
+        return list(x.chunk(size, dim=1))
+
+    class Ring(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale):
+            os_, lses = ring_fwd(split(q), split(k), split(v), ranks, size,
+                                 rotate_hop, causal=causal, scale=scale)
+            o = torch.cat(os_, 1)
+            ctx.save_for_backward(q, k, v, o, *lses)
+            ctx.causal, ctx.scale = causal, scale
+            return o
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, o, *lses = ctx.saved_tensors
+            dos = split(g.to(q.dtype))
+            deltas = [attention_delta(d, x) for d, x in zip(dos, split(o))]
+            grads = ring_bwd(split(q), split(k), split(v), dos, lses,
+                             deltas, ranks, size, rotate_hop,
+                             causal=ctx.causal, scale=ctx.scale)
+            return tuple(torch.cat(g, 1) for g in grads) + (None, None)
+
+    def attention(q, k, v, *, causal=True, scale=None):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return Ring.apply(q, k, v, bool(causal), float(scale))
+
+    return attention
+
+
+@contextlib.contextmanager
+def _one_device_attention(impl, ring):
+    """``RTPU_ATTN_IMPL=impl`` for a block; with ``ring`` chunks, the
+    kernels' attention runs the ring's schedule (``simulated_ring``)."""
+    from ray_tpu_torch import flags
+    from ray_tpu_torch.ops import attention as att
+
+    kernels = att.flash_attention
+    if ring:
+        att.flash_attention = simulated_ring(ring)
+    try:
+        with flags.scoped({"RTPU_ATTN_IMPL": impl}):
+            yield
+    finally:
+        att.flash_attention = kernels
+
+
+def one_device_losses(cfg, batch, seq, device, steps, impl="auto",
+                      ring=None):
+    """The one-device step's first ``steps`` losses on dist_train's
+    tokens (``impl``: ``RTPU_ATTN_IMPL``, "xla" for the plain attention;
+    ``ring``: see ``_one_device_attention``): the reference of a layout
+    with no other, or its rounding floor."""
+    import torch
+
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    ts = transformer_train_step(cfg, device=device, shift_inputs=True)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(SEED))
+    tokens = {"tokens": _train_tokens(cfg, batch, seq, device)}
+    losses = []
+    with _one_device_attention(impl, ring):
+        for _ in range(steps):
+            params, opt, loss = ts.step(params, opt, tokens)
+            losses.append(float(loss))
+    del ts, params, opt
+    gc_collect()
+    return losses
+
+
+def one_device_grads(cfg, batch, seq, device, impl="auto", ring=None):
+    """The one-device step's first gradients, by leaf name (``impl`` and
+    ``ring`` as in ``one_device_losses``)."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+    from ray_tpu_torch.train.step import param_leaves
+
+    params = init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    with _one_device_attention(impl, ring):
+        loss_fn(params, {"tokens": _train_tokens(cfg, batch, seq, device)},
+                cfg, shift_inputs=True).backward()
+    return _leaf_grads(params)
+
+
+def _rel_l2_by_leaf(got, want):
+    return {k: float((g.float() - want[k].float()).norm()
+                     / want[k].float().norm()) for k, g in got.items()}
+
+
+def _leaf_grads(params):
+    """Each leaf's gradient by name (DTensors gathered whole: every rank of
+    their mesh calls this)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        g = t.grad
+        return g.full_tensor() if isinstance(g, DTensor) else g
+
+    out = {k: whole(v) for k, v in params.items() if k != "layers"}
+    out.update({"layers." + k: whole(v)
+                for k, v in params["layers"].items()})
+    return out
+
+
+def check_dist_layouts(ranks, refs, floors, rtol):
+    """Each layout's losses against its one-device reference (fsdp: every
+    loss within ``rtol``; the others: the first two, then DIST_FLOOR_FACTOR
+    times ``floors[name]``, the plain attention's relative distance at each
+    step, and no less than ``rtol``) and the same on every rank, its
+    first-step gradients against the one-device step's where rank 0
+    measured them (DIST_FLOOR_FACTOR times the plain attention's distance,
+    per leaf, and no more than DIST_GRAD_CAP), and each rank's launches
+    against its schedule's. Returns (rows, failures)."""
+    rows, failures = {}, []
+    for name, ref in refs.items():
+        lead = ranks[0]["layouts"][name]
+        ref = ref[:len(lead["losses"])]
+        rel = [abs(a - b) / abs(b) for a, b in zip(lead["losses"], ref)]
+        floor = floors.get(name)
+        bound = [rtol if i < 2 or name == "fsdp" or floor is None
+                 else max(rtol, DIST_FLOOR_FACTOR * floor[i])
+                 for i in range(len(rel))]
+        grads = lead.get("grad_rel_l2")
+        grad_floor = lead.get("grad_floor_rel_l2")
+        if grads is not None:
+            bounds = {k: min(DIST_FLOOR_FACTOR * f, DIST_GRAD_CAP)
+                      for k, f in grad_floor.items()}
+            over = {k: (g, bounds[k]) for k, g in grads.items()
+                    if not g <= bounds[k]}
+            if over:
+                failures.append(f"{name}: first-step gradients against the "
+                                f"one-device step's (leaf: (relative L2, "
+                                f"bound)): {over}")
+        for r in ranks:
+            got = r["layouts"][name]
+            if got["launches"] != got["launches_expected"]:
+                failures.append(f"{name}: rank {r['rank']} launches "
+                                f"{got['launches']}, expected "
+                                f"{got['launches_expected']}")
+            if got["losses"] != lead["losses"]:
+                failures.append(f"{name}: rank {r['rank']} losses "
+                                f"{got['losses']} differ from rank 0's")
+        if not all(r <= b for r, b in zip(rel, bound)):
+            failures.append(f"{name}: losses {lead['losses']} against the "
+                            f"one-device {ref}: relative {rel} (bounds "
+                            f"{bound})")
+        rows[name] = {"losses": lead["losses"], "one_device_losses": ref,
+                      "loss_rel_diff": rel, "loss_rel_bound": bound,
+                      "loss_floor_rel": floor, "grad_rel_l2": grads,
+                      "grad_floor_rel_l2": grad_floor,
+                      "grad_over_floor_max": (
+                          max(g / grad_floor[k] if grad_floor[k] else math.inf
+                              for k, g in grads.items())
+                          if grads else None),
+                      "step_ms": lead["step_s"] * 1e3,
+                      "launches_by_rank": [r["layouts"][name]["launches"]
+                                           for r in ranks],
+                      "peak_mem_gib_per_rank": [
+                          r["layouts"][name].get("peak_mem_gib")
+                          for r in ranks],
+                      "local_tokens": lead["local_tokens"]}
+    return rows, failures
+
+
+def phase_dist_train(device, train_losses, train_step_s, moe_losses):
+    """The mesh training path: bench_350m on an fsdp mesh of every visible
+    card (up to 4); with 2 or more, also the seq (ring, Ulysses), expert
+    (the MoE model) and pipe layouts, one after another in one process
+    group."""
+    import torch
+
     world = min(torch.cuda.device_count(), DIST_MAX_RANKS)
-    addr = f"localhost:{_free_port()}"
-    args = (world, addr, "cuda", cfg, TRAIN_BATCH, TRAIN_SEQ)
-    if world == 1:
-        ranks = [dist_train_rank(0, *args)]
-    else:
-        ctx = multiprocessing.get_context("spawn")
-        results = ctx.Queue()
-        procs = [ctx.Process(target=dist_train_rank, args=(r, *args, results))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        try:
-            ranks = [results.get(timeout=600) for _ in range(world)]
-        finally:
-            for p in procs:
-                p.join(timeout=60)
-                if p.is_alive():
-                    p.terminate()
-        errors = [r["error"] for r in ranks if "error" in r]
-        if errors:
-            raise RuntimeError("a dist_train rank failed:\n" + errors[0])
-        ranks.sort(key=lambda r: r["rank"])
-    lead = ranks[0]
+    names = DIST_LAYOUTS if world > 1 else ("fsdp",)
+    layouts = dist_layouts(world, names)
     steps = DIST_WARM_STEPS + DIST_TIMED_STEPS
-    want = {"flash_fwd": 2 * cfg.n_layers * steps,
-            "flash_bwd_dq": cfg.n_layers * steps,
-            "flash_bwd_dkv": cfg.n_layers * steps}
-    ref = train_losses[:steps]
-    rel = [abs(a - b) / abs(b) for a, b in zip(lead["losses"], ref)]
+    refs = {"fsdp": train_losses, "pipe": train_losses,
+            "expert": moe_losses}
+    floors = {}
+    if world > 1:
+        long = layouts["seq_ring"][2:5]
+        refs.update(
+            seq_ring=one_device_losses(*long, device, steps,
+                                       ring=_ring_chunks("seq_ring", world)),
+            seq_ulysses=one_device_losses(*long, device, steps))
+        # Each reference's rounding floor: its steps with the plain
+        # attention, one run for each (config, batch, seq).
+        plain = {}
+        for name in names:
+            key = repr(layouts[name][2:5])
+            if key not in plain:
+                plain[key] = one_device_losses(*layouts[name][2:5], device,
+                                               steps, impl="xla")
+            floors[name] = [abs(a - b) / abs(b) for a, b in
+                            zip(plain[key], refs[name][:steps])]
+    ranks = run_dist_ranks(world, "cuda", layouts)
+    # On one card the mesh path runs the same bf16 model on the same whole
+    # batch, so its losses must be train's exactly.
     rtol = DIST_LOSS_RTOL if world > 1 else 0.0
-    failures = []
-    for r in ranks:
-        if r["launches"] != want:
-            failures.append(f"rank {r['rank']} launches {r['launches']}, "
-                            f"expected {want}")
-        if r["losses"] != lead["losses"]:
-            failures.append(f"rank {r['rank']} losses {r['losses']} differ "
-                            f"from rank 0's")
-    if not max(rel) <= rtol:
-        failures.append(f"losses {lead['losses']} against train's {ref}: "
-                        f"relative {rel} (tol {rtol})")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows, failures = check_dist_layouts(
+        ranks, {n: refs[n] for n in names}, floors, rtol)
+    lead = ranks[0]["layouts"]["fsdp"]
     emit("dist_train", ok=not failures, failures=failures,
-         model="bench_350m", n_layers=cfg.n_layers,
-         remat_policy=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         model="bench_350m", n_layers=layouts["fsdp"][2].n_layers,
+         remat_policy="dots", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          mesh={"fsdp": world}, rules="RULES_FSDP", world=world,
          local_tokens=lead["local_tokens"], placements=lead["placements"],
          warm_steps=DIST_WARM_STEPS, timed_steps=DIST_TIMED_STEPS,
-         losses=lead["losses"], train_losses=ref, loss_rel_diff=rel,
-         loss_rtol=rtol, launches=lead["launches"],
+         losses=lead["losses"], train_losses=train_losses[:steps],
+         loss_rel_diff=rows["fsdp"]["loss_rel_diff"], loss_rtol=rtol,
+         loss_floor_rel=rows["fsdp"]["loss_floor_rel"],
+         grad_rel_l2=rows["fsdp"]["grad_rel_l2"],
+         grad_floor_rel_l2=rows["fsdp"]["grad_floor_rel_l2"],
+         grad_over_floor_max=rows["fsdp"]["grad_over_floor_max"],
+         floor_factor=DIST_FLOOR_FACTOR, grad_cap=DIST_GRAD_CAP,
+         launches=lead["launches"],
          launches_per_step={k: v / steps for k, v in lead["launches"].items()},
          step_ms=lead["step_s"] * 1e3, train_step_ms=train_step_s * 1e3,
          step_ratio=lead["step_s"] / train_step_s,
-         tokens_per_s=tokens / lead["step_s"],
-         peak_mem_gib_per_rank=[r["peak_mem_gib"] for r in ranks],
-         profile=lead["profile"])
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / lead["step_s"],
+         peak_mem_gib_per_rank=rows["fsdp"]["peak_mem_gib_per_rank"],
+         profile=lead["profile"],
+         layouts={n: r for n, r in rows.items() if n != "fsdp"})
+    if world == 1:
+        emit("dist_train_layouts", ok=True, ran=False, cards=world,
+             layouts=[n for n in DIST_LAYOUTS if n != "fsdp"],
+             reason="the seq, expert and pipe layouts need >= 2 cards")
     if failures:
         raise AssertionError("; ".join(failures))
-    return lead["launches"]
+    return {k: sum(r["launches"][k] for r in ranks[0]["layouts"].values())
+            for k in lead["launches"]}
 
 
 def phase_train_grad_check(device):
@@ -875,6 +1538,7 @@ def phase_train_grad_check(device):
     bf16, plain attention in bf16, plain attention in f32."""
     import torch
 
+    from ray_tpu_torch import flags
     from ray_tpu_torch.models.configs import bench_350m
     from ray_tpu_torch.models.transformer import init_params, loss_fn
     from ray_tpu_torch.train.step import param_leaves
@@ -892,16 +1556,9 @@ def phase_train_grad_check(device):
                                      device)}
 
     def grads(impl, c):
-        old = os.environ.get("RTPU_ATTN_IMPL")
-        os.environ["RTPU_ATTN_IMPL"] = impl
-        try:
+        with flags.scoped({"RTPU_ATTN_IMPL": impl}):
             loss = loss_fn(params, batch, c, shift_inputs=True)
             return torch.autograd.grad(loss, leaves)
-        finally:
-            if old is None:
-                os.environ.pop("RTPU_ATTN_IMPL")
-            else:
-                os.environ["RTPU_ATTN_IMPL"] = old
 
     kernel = grads("auto", cfg)
     plain = grads("xla", cfg)
@@ -959,7 +1616,7 @@ def device_ms(fn, iters: int) -> float:
     raise RuntimeError("torch.profiler recorded no device time")
 
 
-def sdpa_times(q, k, v, scale, do=None, iters=20):
+def sdpa_times(q, k, v, scale, do=None, iters=20, causal=True):
     """The library yardstick: ``F.scaled_dot_product_attention`` on
     contiguous [B, H, S, D] copies of q/k/v, pinned in turn to each backend
     that takes them; with ``do``, its backward alone on a retained graph
@@ -981,7 +1638,8 @@ def sdpa_times(q, k, v, scale, do=None, iters=20):
         def fwd(backend=backend):
             with sdpa_kernel(backend):
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=scale, enable_gqa=gqa)
+                    qt, kt, vt, is_causal=causal, scale=scale,
+                    enable_gqa=gqa)
 
         def bwd(out):
             return torch.autograd.grad(out, (qt, kt, vt), dot,
@@ -1011,28 +1669,33 @@ def phase_kernel_time(fa, device):
     # the fused wqkv projection, as the training path hands them over).
     # ms: CUDA events over back-to-back launches; device_ms: profiler.
     rows = []
-    shapes = [(1, S, 32, 8, 128, "kv") for S in TIMED_SEQ]
-    shapes.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, "qkv"))
-    for B, S, H, KVH, D, fused in shapes:
+    shapes = [(1, S, 32, 8, 128, "kv", True) for S in TIMED_SEQ]
+    shapes.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, "qkv", True))
+    # The ring's chunk from the past: a 2048-token chunk of Llama-3-8B's
+    # attention against another chunk's keys, no mask.
+    shapes.append((1, SP_SEQ // SP_RANKS, SP_HEADS, SP_KV_HEADS,
+                   SP_HEAD_DIM, "", False))
+    for B, S, H, KVH, D, fused, causal in shapes:
         q, k, v = attn_inputs(7, B, S, H, KVH, D, device, fused=fused)
         scale = D ** -0.5
         iters = 50 if B * S <= 2048 else 20
-        kernel = lambda: fa.flash_attention_fwd(q, k, v, scale, True)
+        kernel = lambda: fa.flash_attention_fwd(q, k, v, scale, causal)
         ms = cuda_ms(kernel, iters=iters)
         plain_ms = cuda_ms(
-            lambda: fa.flash_attention_fwd_plain(q, k, v, scale, True),
+            lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal),
             iters=10 if B * S <= 2048 else 3)
-        bound_ms, bound_by = flash_bound(B, S, H, KVH, D, True)
+        bound_ms, bound_by = flash_bound(B, S, H, KVH, D, causal)
         rows.append({"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-                     "causal": True, "ms": ms,
+                     "causal": causal, "ms": ms,
                      "device_ms": device_ms(kernel, iters),
                      "plain_ms": plain_ms,
                      **_library_fields(sdpa_times(q, k, v, scale,
-                                                  iters=iters)),
+                                                  iters=iters,
+                                                  causal=causal)),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "roofline_share": bound_ms / ms})
         # Achieved rate: the operations the mask keeps over device time.
-        rows[-1]["tflops"] = flash_flops(B, S, H, D, True) / (
+        rows[-1]["tflops"] = flash_flops(B, S, H, D, causal) / (
             rows[-1]["device_ms"] * 1e9)
     serve_row = rows[len(TIMED_SEQ) - 1]
     emit("kernel_time", kernel="flash_fwd", l2_flushed=False, rows=rows)
@@ -1040,35 +1703,40 @@ def phase_kernel_time(fa, device):
     # K2 and K3 at the training shape and at Llama-3-8B's prefill shape,
     # beside the SDPA backward (dq, dk and dv together).
     bwd_rows = []
-    for i, (B, S, H, KVH, D) in enumerate(((TRAIN_BATCH, TRAIN_SEQ, 16, 16,
-                                            64), (1, 2048, 32, 8, 128))):
-        args = bwd_inputs(300 + i, B, S, H, KVH, D, True, device,
+    # The training shape, Llama-3-8B's prefill shape, and the ring's chunk
+    # from the past (no mask) at that shape.
+    for i, (B, S, H, KVH, D, causal) in enumerate((
+            (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True),
+            (1, 2048, 32, 8, 128, True), (1, 2048, 32, 8, 128, False))):
+        args = bwd_inputs(300 + i, B, S, H, KVH, D, causal, device,
                           fused="qkv" if KVH != H else "")
         scale = D ** -0.5
-        library = _library_fields(sdpa_times(*args[:3], scale, do=args[3]))
-        both = lambda: (fa.flash_bwd_dq(*args, scale, True),
-                        fa.flash_bwd_dkv(*args, scale, True))
+        library = _library_fields(sdpa_times(*args[:3], scale, do=args[3],
+                                             causal=causal))
+        both = lambda: (fa.flash_bwd_dq(*args, scale, causal),
+                        fa.flash_bwd_dkv(*args, scale, causal))
         # K2 and K3 one after the other, as the backward runs them, beside
         # the one SDPA call that computes all three gradients; the bound is
         # the sum of theirs.
         for name, kernel, plain, products in (
-                ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args, scale, True),
+                ("flash_bwd_dq",
+                 lambda: fa.flash_bwd_dq(*args, scale, causal),
                  fa.flash_bwd_dq_plain, (3,)),
                 ("flash_bwd_dkv",
-                 lambda: fa.flash_bwd_dkv(*args, scale, True),
+                 lambda: fa.flash_bwd_dkv(*args, scale, causal),
                  fa.flash_bwd_dkv_plain, (4,)),
                 ("flash_bwd_dq+dkv", both, fa.flash_attention_bwd_plain,
                  (3, 4))):
             ms = cuda_ms(kernel, iters=20)
-            plain_ms = cuda_ms(lambda: plain(*args, scale, True), iters=3)
-            bounds = [bwd_bound(B, S, H, KVH, D, True, n, n == 3)
+            plain_ms = cuda_ms(lambda: plain(*args, scale, causal), iters=3)
+            bounds = [bwd_bound(B, S, H, KVH, D, causal, n, n == 3)
                       for n in products]
             bound_ms = sum(b[0] for b in bounds)
             dev_ms = device_ms(kernel, 20)
             bwd_rows.append({
                 "kernel": name, "B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-                "causal": True, "ms": ms, "device_ms": dev_ms,
-                "tflops": sum(bwd_flops(B, S, H, D, True, n)
+                "causal": causal, "ms": ms, "device_ms": dev_ms,
+                "tflops": sum(bwd_flops(B, S, H, D, causal, n)
                               for n in products) / (dev_ms * 1e9),
                 "plain_ms": plain_ms, **library,
                 "library": "sdpa backward (dq, dk, dv together)",
@@ -1077,12 +1745,11 @@ def phase_kernel_time(fa, device):
                 "roofline_share": bound_ms / ms})
     emit("kernel_time", kernel="flash_bwd", l2_flushed=False, rows=bwd_rows)
     # The kernels line: K1 at its serving shape, K2/K3 at the training one.
-    return serve_row, {r["kernel"]: r for r in bwd_rows if r["S"] == TRAIN_SEQ}
+    return serve_row, {r["kernel"]: r for r in bwd_rows
+                       if r["S"] == TRAIN_SEQ and r["causal"]}
 
 
 def main() -> int:
-    import gc
-
     import torch
 
     if not torch.cuda.is_available():
@@ -1104,19 +1771,22 @@ def main() -> int:
 
     max_err = phase_kernel_check(fa, bucket_len, device)
     bwd_err = phase_kernel_check_bwd(fa, device)
+    phase_sp_check(fa, device)
+    gc_collect()
     cfg, params, prompts, serve_launches, eng, tick_s = phase_slice(device)
     phase_prefill_time(cfg, params, prompts, device)
     phase_profile(cfg, params, prompts, eng, tick_s, device)
     # The serving model (16 GB) leaves the card before training starts.
     del cfg, params, eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect()
     train_launches, train_losses, train_step_s = phase_train(fa, device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dist_launches = phase_dist_train(device, train_losses, train_step_s)
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect()
+    moe_launches, moe_serve_launches, moe_losses = phase_moe_train(fa,
+                                                                   device)
+    gc_collect()
+    dist_launches = phase_dist_train(device, train_losses, train_step_s,
+                                     moe_losses)
+    gc_collect()
     phase_train_grad_check(device)
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 
@@ -1126,9 +1796,12 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
         "launches": (serve_launches + train_launches["flash_fwd"]
+                     + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
+                             "moe_train": moe_launches["flash_fwd"],
+                             "moe_serve": moe_serve_launches,
                              "dist_train": dist_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
@@ -1147,8 +1820,10 @@ def main() -> int:
             "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name] + dist_launches[name],
+            "launches": (train_launches[name] + moe_launches[name]
+                         + dist_launches[name]),
             "launches_by_path": {"train": train_launches[name],
+                                 "moe_train": moe_launches[name],
                                  "dist_train": dist_launches[name]},
             "max_abs_err": err,
             "ms": timed["ms"],

@@ -3,7 +3,8 @@
 The JAX parameter pytree, converted leaf by leaf with ``np.asarray``, has
 the same names and shapes as the port's parameters (layers stacked
 [L, ...]: ``wqkv`` [L,d,3,H,hd] for MHA, ``wq`` [L,d,H,hd] with ``wkv``
-[L,d,2,KVH,hd] for GQA, ``w_gate_up`` [L,d,2,F], optional
+[L,d,2,KVH,hd] for GQA, ``w_gate_up`` [L,d,2,F] or, for MoE, ``router``
+[L,d,E], ``moe_w_gate_up`` [L,E,d,2,F] and ``moe_w_down`` [L,E,F,d], optional
 ``<name>_q8_scale`` siblings of int8 weights; a tied head has no
 ``lm_head`` and reads ``embed.T``). :func:`params_to_mesh` carries them
 onto a device mesh as DTensors, placed as a sharded train step places

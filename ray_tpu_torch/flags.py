@@ -9,9 +9,10 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,9 @@ _define("RTPU_ATTN_IMPL", str, "auto",
         "(flash_attention: the kernel on CUDA, its plain version on the "
         "CPU) | xla (the plain reference attention everywhere; the name is "
         "kept from the JAX package).")
+_define("RTPU_SP_MODE", str, "ring",
+        "Context-parallel attention scheme over the seq mesh axis: "
+        "ring | ulysses | auto (ulysses when head counts divide the axis).")
 
 
 def get(name: str) -> Any:
@@ -49,3 +53,19 @@ def get(name: str) -> Any:
     if f.type in (int, float):
         return f.type(raw)
     return raw
+
+
+@contextlib.contextmanager
+def scoped(env: Mapping[str, str]) -> Iterator[None]:
+    """Set environment flags (``{"RTPU_SP_MODE": "ulysses"}``) for a
+    block, restoring their earlier values (or absence) after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -66,7 +66,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
                      device=x.device)
     cv = torch.zeros_like(ck)
     for i, layer in enumerate(iter_layers(params)):
-        x, k, v = _layer_body(cfg, x, layer, positions, return_kv=True)
+        x, _, k, v = _layer_body(cfg, x, layer, positions, return_kv=True)
         ck[i, :, :S] = k
         cv[i, :, :S] = v
     if lengths is None:
@@ -127,7 +127,7 @@ def _decode(params: Params, cache: KVCache, token: torch.Tensor,
         o = torch.matmul(probs, cv.float().permute(0, 2, 1, 3)).to(cfg.dtype)
         x = x + o.reshape(B, 1, H * hd) @ _w(layer, "wo", cfg)
         h = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
-        x = x + _mlp_block(cfg, h, layer)
+        x = x + _mlp_block(cfg, h, layer)[0]
     x, head = final_hidden_and_head(params, x, cfg)
     logits = (x @ head).float()[:, 0]
     return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)

@@ -19,10 +19,12 @@ parameter names, shapes and numerics, so weights carry across unchanged
 - the loss (``loss_fn``) in both token conventions, unfused or through the
   chunked fused lm-head + CE (``ops/fused_ce.py``).
 - on a mesh (a training step's sharding context, ``parallel/sharding.py``)
-  params and activations are DTensors, and ``maybe_constrain`` redistributes
-  the activations where the JAX model constrains them.
-
-The MoE layer is not ported yet.
+  params and activations are DTensors, ``maybe_constrain`` redistributes
+  the activations where the JAX model constrains them, and the projections
+  run on each rank's local shards (``_proj_on_shards``);
+- an MoE config (``moe_num_experts`` > 0) replaces the FFN with the GShard
+  layer of ``ops/moe.py``; every layer returns its load-balancing aux loss
+  beside its output, and the loss adds ``moe_aux_coef`` times their sum.
 """
 from __future__ import annotations
 
@@ -35,13 +37,15 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.fused_ce import fused_next_token_loss
+from ..ops.moe import moe_ffn, moe_ffn_on_mesh
 from ..parallel.sharding import (current_sharding_ctx, gather_for_use,
                                  maybe_constrain, replicated_like,
                                  sharding_ctx)
@@ -127,33 +131,33 @@ class TransformerConfig:
                 + 12.0 * self.n_layers * S * self.d_model)
 
 
-def _require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "the MoE layer is not ported to PyTorch yet (ROADMAP queue A)")
-
-
 # name -> (shape, init) where init is "ones", "zeros" or a normal std.
 def param_spec(cfg: TransformerConfig) -> Dict[str, Any]:
     """The parameter tree's names, shapes and initial scales, the same as
     the JAX ``init_params``: ``{"embed": (shape, init), ..., "layers":
     {name: (shape, init)}}`` with layer shapes stacked [L, ...]."""
-    _require_dense(cfg)
     d, L, V, F_ = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.ff_dim
     H, KVH, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    E = cfg.moe_num_experts
     fan_in = 1.0 / math.sqrt(d)
     layers: Dict[str, Any] = {
         "attn_norm": ((L, d), "ones"),
         "wo": ((L, H * hd, d), 1.0 / math.sqrt(2 * L * H * hd)),
         "mlp_norm": ((L, d), "ones"),
-        "w_down": ((L, F_, d), 1.0 / math.sqrt(2 * L * F_)),
     }
+    if not E:
+        layers["w_down"] = ((L, F_, d), 1.0 / math.sqrt(2 * L * F_))
     if KVH == H:
         layers["wqkv"] = ((L, d, 3, H, hd), fan_in)
     else:
         layers["wq"] = ((L, d, H, hd), fan_in)
         layers["wkv"] = ((L, d, 2, KVH, hd), fan_in)
-    if cfg.activation == "swiglu":
+    if E:
+        # The experts' fan-ins are d and F, not the leading dim E.
+        layers["router"] = ((L, d, E), fan_in)
+        layers["moe_w_gate_up"] = ((L, E, d, 2, F_), fan_in)
+        layers["moe_w_down"] = ((L, E, F_, d), 1.0 / math.sqrt(2 * L * F_))
+    elif cfg.activation == "swiglu":
         layers["w_gate_up"] = ((L, d, 2, F_), fan_in)
     else:
         layers["w_up"] = ((L, d, F_), fan_in)
@@ -215,21 +219,25 @@ def param_logical_specs(cfg: TransformerConfig) -> Params:
     """Tree of logical axis names matching init_params' structure (consumed
     by parallel.sharding.tree_shardings): the JAX package's
     ``param_logical_specs``."""
-    _require_dense(cfg)
     # The leading dim is the layer stack: logical axis "layers" maps onto
     # the `pipe` mesh axis.
     layers = {
         "attn_norm": ("layers", None),
         "wo": ("layers", "heads", "embed"),
         "mlp_norm": ("layers", None),
-        "w_down": ("layers", "mlp", "embed"),
     }
+    if not cfg.moe_num_experts:
+        layers["w_down"] = ("layers", "mlp", "embed")
     if cfg.kv_heads == cfg.n_heads:
         layers["wqkv"] = ("layers", "embed", None, "heads", None)
     else:
         layers["wq"] = ("layers", "embed", "heads", None)
         layers["wkv"] = ("layers", "embed", None, "kv_heads", None)
-    if cfg.activation == "swiglu":
+    if cfg.moe_num_experts:
+        layers["router"] = ("layers", "embed", None)
+        layers["moe_w_gate_up"] = ("layers", "expert", "embed", None, "mlp")
+        layers["moe_w_down"] = ("layers", "expert", "mlp", "embed")
+    elif cfg.activation == "swiglu":
         layers["w_gate_up"] = ("layers", "embed", None, "mlp")
     else:
         layers["w_up"] = ("layers", "embed", "mlp")
@@ -352,29 +360,47 @@ class _SavedDot(torch.autograd.Function):
         return gh, gw, None
 
 
-def _sharded_out_dim(w: torch.Tensor) -> Optional[int]:
-    """The output dim past the first that a DTensor weight [d, ...] is
-    split on (tensor parallelism: the heads of wqkv [d, 3, H, hd]), if
-    any."""
-    if not isinstance(w, DTensor):
-        return None
-    dims = {p.dim for p in w.placements if isinstance(p, Shard)} - {0, 1}
-    return dims.pop() if dims else None
-
-
 def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A projection of the layer, h [..., d] @ w [d, ...] (a product with
-    no batch dimension: what the "dots" policies save)."""
-    lead = _sharded_out_dim(w)
-    if lead is not None:
-        # DTensor keeps a split through the flattening of w's output dims
-        # only on the first of them: move the split dim there and back.
-        n = h.ndim - 1
-        return _proj(h, w.movedim(lead, 1)).movedim(n, n + lead - 1)
+    no batch dimension: what the "dots" policies save). DTensors run it
+    on each rank's shards (:func:`_proj_on_shards`)."""
+    if isinstance(h, DTensor):
+        return _proj_on_shards(h, w)
     store = getattr(_remat, "dots", None)
     if store is None:
         return _matmul(h, w)
     return _SavedDot.apply(h, w, store)
+
+
+def _proj_on_shards(h: DTensor, w: DTensor) -> DTensor:
+    """:func:`_proj` on local shards through ``local_map``, per mesh axis:
+    tokens split (a leading dim of h) keep their split and need w whole
+    there (its gradient is then a partial sum); a split contraction (h's
+    last dim with w's first) gives a partial sum; a split output dim of w
+    stays split. The flattening of h's leading dims then sees plain
+    tensors: DTensor (torch 2.11) refuses to flatten [B, S] when S is
+    split (context parallelism), in the forward or in the backward, and
+    keeps a split of w's output dims only on the first of them."""
+    n = h.ndim - 1
+    in_h, in_w, out, grad_h, grad_w = [], [], [], [], []
+    for ph, pw in zip(h.placements, w.placements):
+        hs = ph.dim if isinstance(ph, Shard) else None
+        ws = pw.dim if isinstance(pw, Shard) else None
+        if hs is not None and hs < n:        # tokens split
+            pick = (ph, Replicate(), ph, ph, Partial())
+        elif hs == n or ws == 0:             # contraction split
+            pick = (Shard(n), Shard(0), Partial(), Shard(n), Shard(0))
+        elif ws is not None:                 # output split
+            pick = (Replicate(), pw, Shard(n - 1 + ws), Partial(), pw)
+        else:
+            pick = (Replicate(),) * 5
+        for acc, p in zip((in_h, in_w, out, grad_h, grad_w), pick):
+            acc.append(p)
+    return local_map(_proj, out_placements=list(out),
+                     in_placements=(tuple(in_h), tuple(in_w)),
+                     in_grad_placements=(tuple(grad_h), tuple(grad_w)),
+                     device_mesh=h.device_mesh,
+                     redistribute_inputs=True)(h, w)
 
 
 def _w(layer: Params, name: str, cfg: TransformerConfig) -> torch.Tensor:
@@ -405,21 +431,39 @@ def _qkv_proj(cfg: TransformerConfig, h: torch.Tensor, layer: Params,
     return q, k, v
 
 
-def _mlp_block(cfg: TransformerConfig, h: torch.Tensor,
-               layer: Params) -> torch.Tensor:
-    """Post-attention FFN (swiglu / tanh-gelu), shared with decode."""
-    _require_dense(cfg)
+def _mlp_block(cfg: TransformerConfig, h: torch.Tensor, layer: Params
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Post-attention FFN (moe / swiglu / tanh-gelu), shared with decode;
+    returns (delta, the MoE aux loss: None for a dense layer)."""
+    if cfg.moe_num_experts:
+        return _moe_block(cfg, h, layer)
     if cfg.activation == "swiglu":
         w = _w(layer, "w_gate_up", cfg)
         with checkpoint_name("gate_up"):
             gu = _proj(h, w)                                 # [B,S,2,F]
         act = F.silu(gu[:, :, 0]) * gu[:, :, 1]
-        return _proj(act, _w(layer, "w_down", cfg))
+        return _proj(act, _w(layer, "w_down", cfg)), None
     w = _w(layer, "w_up", cfg)
     with checkpoint_name("gate_up"):
         up = _proj(h, w)
     act = F.gelu(up, approximate="tanh")
-    return _proj(act, _w(layer, "w_down", cfg))
+    return _proj(act, _w(layer, "w_down", cfg)), None
+
+
+def _moe_block(cfg: TransformerConfig, h: torch.Tensor, layer: Params):
+    """The MoE FFN (``ops/moe.py``): the router in f32 as stored, the
+    experts in the compute dtype. On a mesh each rank runs its own tokens
+    through its own experts (``moe_ffn_on_mesh``)."""
+    kw = dict(experts_per_token=cfg.moe_experts_per_token,
+              capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype)
+    router = gather_for_use(layer["router"])
+    w_gate_up = _w(layer, "moe_w_gate_up", cfg)
+    w_down = _w(layer, "moe_w_down", cfg)
+    ctx = current_sharding_ctx()
+    if ctx is None:
+        return moe_ffn(h, router, w_gate_up, w_down, **kw)
+    return moe_ffn_on_mesh(h, router, w_gate_up, w_down, mesh=ctx[0],
+                           rules=ctx[1], **kw)
 
 
 def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
@@ -433,11 +477,12 @@ def _layer_body(cfg: TransformerConfig, x: torch.Tensor, layer: Params,
     x = x + _proj(o.reshape(B, S, H * hd), _w(layer, "wo", cfg))
     x = maybe_constrain(x, ("batch", "seq_act", "embed"))
     h = _norm(x, layer["mlp_norm"], layer.get("mlp_norm_b"), cfg.norm)
-    x = x + _mlp_block(cfg, h, layer)
+    delta, aux = _mlp_block(cfg, h, layer)
+    x = x + delta
     x = maybe_constrain(x, ("batch", "seq_act", "embed"))
     if return_kv:
-        return x, k, v
-    return x
+        return x, aux, k, v
+    return x, aux
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor,
@@ -497,8 +542,9 @@ def _checkpointed_with_saved_dots(body):
 
 
 def layer_scan_body(cfg: TransformerConfig, positions: torch.Tensor
-                    ) -> Callable[[torch.Tensor, Params], torch.Tensor]:
-    """The (remat-wrapped) per-layer body ``(x, layer) -> x``. With
+                    ) -> Callable[[torch.Tensor, Params], Tuple[
+                        torch.Tensor, Optional[torch.Tensor]]]:
+    """The (remat-wrapped) per-layer body ``(x, layer) -> (x, aux)``. With
     ``cfg.remat`` the layer runs under non-reentrant checkpointing:
     "full" recomputes the whole layer in the backward; "dots" and
     "dots_attn" keep the projections' outputs; "min" keeps everything but
@@ -546,8 +592,9 @@ def layer_scan_body(cfg: TransformerConfig, positions: torch.Tensor
 
 def backbone_with_aux(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens -> hidden [B, S, d] and the MoE aux loss (0 for dense)."""
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """tokens -> hidden [B, S, d] and the MoE aux loss (None for a dense
+    config; the JAX package returns 0 there)."""
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = _positions(B, S, tokens.device)
@@ -564,10 +611,23 @@ def backbone_with_aux(params: Params, tokens: torch.Tensor,
                   (layer_scan_body(plain, positions), layers[half:])]
     else:
         stages = [(layer_scan_body(cfg, positions), layers)]
+    aux = None
     for body, stage in stages:
-        for layer in stage:
-            x = body(x, layer)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = run_layers(body, x, stage, aux)
+    return x, aux
+
+
+def run_layers(body, x: torch.Tensor, layers,
+               aux: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``body`` (a :func:`layer_scan_body`) over ``layers`` in order:
+    returns the output and ``aux`` plus the layers' aux losses (None while
+    every layer is dense)."""
+    for layer in layers:
+        x, a = body(x, layer)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def final_hidden_and_head(params: Params, x: torch.Tensor,
@@ -585,6 +645,8 @@ def lm_head(params: Params, x: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """Final norm + output projection: hidden [B,S,d] -> logits f32."""
     x, head = final_hidden_and_head(params, x, cfg)
+    if isinstance(x, DTensor):
+        return _proj_on_shards(x, head).float()
     return (x @ head).float()
 
 
@@ -670,8 +732,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
       the model runs at the power-of-two length S).
     ``batch["mask"]``, if given, weights positions as in the reference.
     With ``cfg.fused_ce`` the head and CE go through ``ops/fused_ce.py``.
-    An MoE config raises NotImplementedError in the layer until the MoE
-    layer is ported; its aux term is then added as in the reference.
+    An MoE config adds ``moe_aux_coef`` times the layers' summed aux loss.
     """
     tokens = batch["tokens"]
     if cfg.fused_ce:

@@ -2,8 +2,9 @@
 
 The counterpart of the JAX package's ``parallel/``: DP, FSDP and TP
 expressed as DTensor placements over a named ``DeviceMesh``, from the same
-logical-axis rule tables. The pipeline (``pipeline_apply``,
-``pipeline_loss_fn``, ``MPMDPipeline``) waits for ROADMAP A4.
+logical-axis rule tables, and the GPipe pipeline over ``pipe``
+(``pipeline.py``). The actor-based ``MPMDPipeline`` is framework glue
+(ROADMAP item G).
 """
 from .mesh import (
     AXIS_ORDER,

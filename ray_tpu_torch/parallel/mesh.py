@@ -15,8 +15,11 @@ both sides:
     expert— MoE expert parallelism (all-to-all)
     pipe  — pipeline stages (ppermute microbatch handoff)
 
-The port trains over ``data``, ``fsdp`` and ``tensor``; ``seq``, ``expert``
-and ``pipe`` larger than 1 wait for ROADMAP A4.
+The port trains over every axis: ``seq`` through ring and Ulysses
+attention (``ops/ring_attention.py``, ``ops/ulysses_attention.py``),
+``expert`` through the MoE layer (``ops/moe.py``; its tokens stay where
+the batch split puts them, so no all-to-all), ``pipe`` through the GPipe
+schedule (``parallel/pipeline.py``; point-to-point hand-offs).
 """
 from __future__ import annotations
 

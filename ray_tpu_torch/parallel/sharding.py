@@ -100,6 +100,15 @@ def logical_to_mesh_spec(logical: LogicalSpec, rules: Rules,
     return tuple(out)
 
 
+def axis_coord(mesh: DeviceMesh, axes) -> int:
+    """This rank's index along ``axes`` taken together, the first axis
+    outermost: the shard it holds of a dim split over them."""
+    c = 0
+    for a in axes:
+        c = c * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+    return c
+
+
 def entry_axes(entry) -> Tuple[str, ...]:
     """The mesh axes of one entry of a mesh spec (None, a name, a tuple)."""
     if entry is None:

@@ -17,8 +17,10 @@ Two differences from the reference, by design:
   ``(params, opt_state, loss)`` so a caller's loop reads the same;
 - the optimizer state is the ``torch.optim.Optimizer`` object itself.
 
-The pipeline branch of ``transformer_train_step`` and meshes with a
-``pipe``, ``seq`` or ``expert`` axis > 1 wait for ROADMAP A4.
+On a mesh with ``pipe`` > 1 the loss runs the decoder as a GPipe pipeline
+(``parallel/pipeline.py``); ``seq`` > 1 runs ring or Ulysses attention
+where the rules split the sequence (``ops/attention.py``), and ``expert``
+> 1 splits an MoE config's experts (``ops/moe.py``).
 """
 from __future__ import annotations
 
@@ -230,36 +232,41 @@ def _fresh_state(opt: torch.optim.Optimizer, t: torch.Tensor) -> Dict:
             "exp_avg_sq": torch.zeros_like(t)}
 
 
-def transformer_train_step(cfg, *, device: DeviceLike = None,
-                           optimizer: Optional[OptimizerFactory] = None,
-                           shift_inputs: bool = False, mesh: Any = None,
+def transformer_train_step(cfg, mesh: Any = None, *,
+                           device: DeviceLike = None,
                            rules: Optional[shd.Rules] = None,
-                           pipeline_microbatches: Optional[int] = None):
+                           optimizer: Optional[OptimizerFactory] = None,
+                           pipeline_microbatches: Optional[int] = None,
+                           shift_inputs: bool = False):
     """Wire a ``models.transformer`` config into a :class:`TrainStep`, or,
-    with ``mesh``, a :class:`ShardedTrainStep` over it with ``rules``
-    (default ``DEFAULT_RULES``). ``shift_inputs`` selects the [B,
-    S+1]-tokens convention (see ``loss_fn``). A mesh with a ``pipe``,
-    ``seq`` or ``expert`` axis > 1, and ``pipeline_microbatches``, raise
-    NotImplementedError (ROADMAP A4)."""
+    with ``mesh`` (positional, as in the JAX package), a
+    :class:`ShardedTrainStep` over it with ``rules`` (default
+    ``DEFAULT_RULES``). ``shift_inputs`` selects the [B, S+1]-tokens
+    convention (see ``loss_fn``). On a mesh with pipe > 1 the decoder runs
+    as a GPipe pipeline of ``pipeline_microbatches`` microbatches (default
+    2 x pipe); with pipe = 1 that argument is ignored."""
     from ..models import transformer as tfm
 
-    if pipeline_microbatches is not None:
-        raise NotImplementedError(
-            "the pipeline of transformer_train_step is not ported yet "
-            "(ROADMAP A4)")
     loss = lambda params, batch: tfm.loss_fn(  # noqa: E731
         params, batch, cfg, shift_inputs=shift_inputs)
     if mesh is not None:
         if device is not None:
             raise ValueError("a mesh decides the device; pass one or the "
                              "other")
-        wide = {a: n for a, n in mesh_shape(mesh).items()
-                if a in ("pipe", "seq", "expert") and n > 1}
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide}: pipeline, sequence and expert "
-                f"parallelism are not ported yet (ROADMAP A4); the port "
-                f"trains over data, fsdp and tensor")
+        pipe = mesh_shape(mesh)["pipe"]
+        if pipe > 1:
+            if cfg.fused_ce:
+                # The pipelined loss computes the logits after the last
+                # stage and would skip the fused epilogue.
+                raise NotImplementedError(
+                    "fused_ce is not supported under pipeline parallelism "
+                    "yet — unset cfg.fused_ce for pipe>1 meshes")
+            from ..parallel.pipeline import pipeline_loss_fn
+
+            loss = pipeline_loss_fn(
+                cfg, mesh, rules=rules or shd.DEFAULT_RULES,
+                num_microbatches=pipeline_microbatches or 2 * pipe,
+                shift_inputs=shift_inputs)
         return ShardedTrainStep(
             init_leaves_fn=lambda gen, dev: tfm.init_leaves(cfg, gen, dev),
             loss_fn=loss, logical_specs=tfm.param_logical_specs(cfg),

@@ -186,5 +186,17 @@ def test_rope_and_norms_match_jax():
 
 
 def test_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        ttfm.param_spec(tconfigs.moe_tiny())
+    """MoE is ported now: an MoE config's param tree has the JAX
+    ``init_params`` names and shapes (the router and stacked experts in
+    place of the dense FFN), and the draws have its scales."""
+    jcfg, tcfg = jconfigs.moe_tiny(), tconfigs.moe_tiny()
+    jparams = jtfm.init_params(jax.random.key(0), jcfg)
+    spec = ttfm.param_spec(tcfg)
+    assert sorted(spec["layers"]) == sorted(jparams["layers"])
+    for name, (shape, _) in spec["layers"].items():
+        assert shape == jparams["layers"][name].shape, name
+    params = ttfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    for name in ("router", "moe_w_gate_up", "moe_w_down"):
+        np.testing.assert_allclose(
+            float(params["layers"][name].std()),
+            float(np.asarray(jparams["layers"][name]).std()), rtol=0.1)

@@ -157,16 +157,33 @@ def test_maybe_constrain_is_a_noop_outside_a_context(world):
 
 @pytest.mark.parametrize("axis", ["pipe", "seq", "expert"])
 def test_unported_axes_raise(world, axis):
+    """The pipe, seq and expert axes are ported: the step builds, with the
+    mesh passed positionally as the JAX package takes it. Under pipe > 1
+    the fused CE raises, as in the JAX package (its pipelined loss would
+    skip the fused epilogue)."""
+    from ray_tpu_torch.train.step import ShardedTrainStep
+
     cfg = tconfigs.llama_tiny(dtype=torch.float32)
     mesh = _mesh(data=4, **{axis: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        transformer_train_step(cfg, mesh=mesh, rules=tshd.RULES_TP)
+    ts = transformer_train_step(cfg, mesh, rules=tshd.RULES_TP)
+    assert isinstance(ts, ShardedTrainStep)
+    assert ts.mesh is mesh
+    fused = tconfigs.llama_tiny(dtype=torch.float32, fused_ce=True)
+    if axis == "pipe":
+        with pytest.raises(NotImplementedError, match="fused_ce"):
+            transformer_train_step(fused, mesh, rules=tshd.RULES_TP)
+    else:
+        transformer_train_step(fused, mesh, rules=tshd.RULES_TP)
 
 
 def test_train_step_options_without_a_mesh(world):
+    from ray_tpu_torch.train.step import TrainStep
+
     cfg = tconfigs.llama_tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        transformer_train_step(cfg, device="cpu", pipeline_microbatches=4)
+    # One device has no pipe axis: the microbatch count is ignored, as on
+    # a mesh whose pipe is 1.
+    assert isinstance(transformer_train_step(
+        cfg, device="cpu", pipeline_microbatches=4), TrainStep)
     with pytest.raises(ValueError, match="need a mesh"):
         transformer_train_step(cfg, device="cpu", rules=tshd.RULES_DP)
     with pytest.raises(ValueError, match="mesh decides"):
@@ -184,14 +201,19 @@ def _qkv(mesh, rules, H, KVH):
 
 
 def test_attention_on_a_mesh_checks_its_split(world):
-    """A seq axis > 1 waits for ring/Ulysses attention; the kv heads must
-    split over the tensor axis, and both head names must map to the same
-    axes (else a rank's query heads would read another rank's kv
-    heads)."""
+    """A seq axis > 1 splits the sequence where the rules map seq_act onto
+    it (ring or Ulysses attention on each chunk; tests/
+    test_torch_seq_parallel.py runs them on real ranks) and leaves it
+    whole where they do not; the kv heads must split over the tensor axis,
+    and both head names must map to the same axes (else a rank's query
+    heads would read another rank's kv heads)."""
     mesh = _mesh(data=4, seq=2)
-    with tshd.sharding_ctx(mesh, tshd.RULES_TP), pytest.raises(
-            NotImplementedError, match="ROADMAP A4"):
-        attention(*_qkv(mesh, tshd.RULES_TP, 4, 2))
+    for rules, seq_split in ((tshd.RULES_TP, True), (tshd.RULES_FSDP,
+                                                     False)):
+        with tshd.sharding_ctx(mesh, rules):
+            out = attention(*_qkv(mesh, rules, 4, 2))
+        assert out.shape == (8, 4, 4, 8)
+        assert (Shard(1) in out.placements) == seq_split
     mesh = _mesh(data=2, tensor=4)
     with tshd.sharding_ctx(mesh, tshd.RULES_TP), pytest.raises(
             ValueError, match="2 kv heads do not split over 4"):
