@@ -19,7 +19,8 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    cluster), head dims 32, 64 and 128, sequence lengths with a ragged tail
    and below one tile, q/k/v as strided views of a fused projection and as
    views whose rows past S hold NaN, every prefill bucket the serving slice
-   runs, the training shape and the ring's 2048-token chunks of
+   runs, the training shape, ViT-L's (64, 197, 16/16, 64, no mask) and
+   the ring's 2048-token chunks of
    Llama-3-8B's attention, causal and not. Then ``sp_check``: the ring's
    and Ulysses' schedules on one card, one sequence of 8192 tokens at
    Llama-3-8B's attention width (32/8 heads, D=128) in 4 chunks, the
@@ -81,12 +82,35 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 7. ``train_grad_check``: one step's gradients of bench_350m at depth 2,
    batch 2, seq 1024 with the kernels (bf16), with the plain attention
    (bf16) and with the plain attention in f32, compared per leaf.
-8. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+8. ``vit_infer``: ViT-L/16 (``vit_l16()``, 304 M f32 params, bf16
+   compute) at full width and depth on seeded weights and images, batches
+   64 and 256: K1 without a mask at 197 tokens, 24 launches a forward;
+   finite [B, 1000] f32 logits; at batch 64 the logits within
+   LOGITS_REL_L2 of the same forward with the plain attention and no
+   further (x1.5) from the f32 forward; one int8-weight forward within
+   VIT_INT8_REL_L2 of the bf16 one. Prints ms a batch, images/s, peak
+   memory and one profiled forward's busy time and idle share. Then
+   ``ppo_train``: PPO with the default Nature-CNN module on
+   ``CnnRolloutBenchEnv(256)`` (84x84x4 uint8 frames), fragment 32, train
+   batch 8192, minibatch 1024, 2 epochs, the runner's policy and the
+   learner on the card: 1 warm-up and 3 timed iterations; finite losses
+   and gradient norms, changed weights, env steps counted, the card's
+   policy logits within PPO_POLICY_REL_L2 of the same params on the CPU,
+   and the parameter change of 3 learner updates on one on-policy batch
+   (shuffle off) within PPO_LEARNER_REL_L2 per leaf of the same updates
+   on the CPU from the same learner state (the same updates with cuDNN's
+   TF32 allowed are read beside it, ungated).
+   Prints env-steps/s (sampling alone and whole iterations), learner ms a
+   minibatch, the sampling/learning split and one profiled iteration's
+   idle share. No kernel of the port runs there (convolutions and dense
+   layers are cuDNN and cuBLAS calls, as the reference's are XLA's).
+9. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: device time on contiguous copies, each backend that takes
    them pinned in turn, the fastest reported) and their bounds; and K1,
-   K2 and K3 without a mask on the ring's 2048-token chunk.
+   K2 and K3 without a mask on the ring's 2048-token chunk; K1 at ViT-L's
+   shape (64, 197, 16/16, 64, no mask).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
@@ -173,6 +197,26 @@ LOGITS_F32_RATIO = 1.5
 # (the kernel_check bound of K2/K3; the ring merges chunks in f32 and its
 # backward rounds p and ds to bf16 per chunk as the whole-sequence kernels
 # do per tile), lse within LSE_ATOL.
+# ViT-L/16 batch inference (BASELINE config 5's compute): 197 tokens, 16
+# heads of 64, no mask. int8 weights against the bf16 forward: per-channel
+# rounding of every product's weight, 2.5e-2 at depth 4 on the CPU.
+VIT_BATCHES = (64, 256)
+VIT_SEQ, VIT_HEADS, VIT_HEAD_DIM = 197, 16, 64
+VIT_INT8_REL_L2 = 0.15
+VIT_TIMED = 5
+# PPO on the Atari-shaped CnnRolloutBenchEnv (BASELINE config 4's shape):
+# 256 envs, fragment 32 (train batch 8192), minibatch 1024, 2 epochs.
+PPO_ENVS, PPO_FRAGMENT, PPO_MINIBATCH, PPO_EPOCHS = 256, 32, 1024, 2
+PPO_TIMED_ITERS = 3
+# The card's policy logits against the same params on the CPU: both f32
+# (TF32 off), other summation orders.
+PPO_POLICY_REL_L2 = 1e-4
+# The learner's update on the card against the CPU's: 3 minibatches of 512
+# rows at lr 1e-4 (as tests/test_torch_rllib.py holds the JAX learner), the
+# worst relative L2 of the parameter change per leaf. The convs and their
+# gradients are f32 on both sides; TF32 would read about 1e-3.
+PPO_CHECK_MINIBATCH, PPO_CHECK_STEPS, PPO_CHECK_LR = 512, 3, 1e-4
+PPO_LEARNER_REL_L2 = 1e-4
 SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
 SP_REL_L2 = 2e-2
 # moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
@@ -290,6 +334,10 @@ def phase_kernel_check(fa, bucket_len, device):
     cases += [(1, S, 32, 8, 128, True, "kv") for S in buckets]
     # The training shape, q/k/v as views of the fused wqkv projection.
     cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
+    # ViT-L's attention: 197 tokens (64 past the last 128-key tile), no
+    # mask, views of the fused wqkv projection, at vit_infer's batch 64.
+    cases.append((VIT_BATCHES[0], VIT_SEQ, VIT_HEADS, VIT_HEADS,
+                  VIT_HEAD_DIM, False, "qkv"))
     # q/k/v as [:, :S] views of [B, S + 64, heads, D] tensors whose rows
     # past S hold NaN: the kernel must never read past S.
     cases += [(2, 100, H, KVH, D, True, "nan")
@@ -1581,6 +1629,257 @@ def phase_train_grad_check(device):
         raise AssertionError(f"gradients disagree: {failures}")
 
 
+def phase_vit_infer(fa, device):
+    """ViT-L/16 batch inference at full width and depth (f32 params, bf16
+    compute) on seeded weights and images: K1 without a mask, 24 launches
+    a forward."""
+    import torch
+
+    from ray_tpu_torch import flags
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.models.quantize import quantize_params_int8
+
+    cfg = vit.vit_l16()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = vit.init_params(
+        torch.Generator(device=device).manual_seed(SEED), cfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    images = {B: torch.randn(B, cfg.image_size, cfg.image_size, 3,
+                             generator=gen, device=device)
+              for B in VIT_BATCHES}
+    failures, logits, per_forward = [], {}, {}
+    _zero_launch_counts(fa)  # count the main path alone
+    with torch.inference_mode():
+        for B in VIT_BATCHES:
+            before = fa.flash_attention_fwd.launches
+            logits[B] = vit.forward(params, images[B], cfg)
+            per_forward[B] = fa.flash_attention_fwd.launches - before
+    launches = fa.flash_attention_fwd.launches
+    for B in VIT_BATCHES:
+        out = logits[B]
+        if per_forward[B] != cfg.n_layers:
+            failures.append(f"batch {B}: K1 launched {per_forward[B]} "
+                            f"times, not {cfg.n_layers}")
+        if (tuple(out.shape) != (B, cfg.num_classes)
+                or out.dtype != torch.float32
+                or not bool(torch.isfinite(out).all())):
+            failures.append(f"batch {B}: logits {tuple(out.shape)} "
+                            f"{out.dtype}, finite "
+                            f"{bool(torch.isfinite(out).all())}")
+
+    # Batch 64 against the plain attention (bf16) and the f32 forward; then
+    # the int8-weight forward against the bf16 one.
+    B = VIT_BATCHES[0]
+    with torch.inference_mode():
+        with flags.scoped({"RTPU_ATTN_IMPL": "xla"}):
+            plain = vit.forward(params, images[B], cfg)
+            f32 = vit.forward(params, images[B],
+                              dataclasses.replace(cfg, dtype=torch.float32))
+        q8 = vit.forward(quantize_params_int8(params), images[B], cfg)
+    k1_vs_plain = rel_l2(logits[B], plain)
+    k1_vs_f32, plain_vs_f32 = rel_l2(logits[B], f32), rel_l2(plain, f32)
+    int8_vs_bf16 = rel_l2(q8, logits[B])
+    if not (k1_vs_plain <= LOGITS_REL_L2
+            and k1_vs_f32 <= LOGITS_F32_RATIO * plain_vs_f32):
+        failures.append(f"logits: K1 vs plain {k1_vs_plain} (tol "
+                        f"{LOGITS_REL_L2}); vs f32 K1 {k1_vs_f32}, plain "
+                        f"{plain_vs_f32} (ratio tol {LOGITS_F32_RATIO})")
+    if not (bool(torch.isfinite(q8).all())
+            and int8_vs_bf16 <= VIT_INT8_REL_L2):
+        failures.append(f"int8 logits: {int8_vs_bf16} from bf16 (tol "
+                        f"{VIT_INT8_REL_L2})")
+
+    # Host clock over synchronised forwards, after the run above warmed up.
+    rows = []
+    for B in VIT_BATCHES:
+        times = []
+        with torch.inference_mode():
+            for _ in range(VIT_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                vit.forward(params, images[B], cfg)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+        ms = statistics.median(times)
+        rows.append({"batch": B, "ms_median": ms, "ms": times,
+                     "images_per_s": B * 1e3 / ms})
+    with torch.inference_mode():
+        busy, top = _device_profile(
+            lambda: vit.forward(params, images[VIT_BATCHES[0]], cfg))
+    unprofiled = rows[0]["ms_median"]
+    k1_ms = sum(ms for name, ms in top if "flash_fwd" in name)
+    emit("vit_infer", ok=not failures, failures=failures, model="vit_l16",
+         num_params=cfg.num_params(), n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads, seq=cfg.num_patches + 1,
+         k1_launches=launches, k1_launches_per_forward=per_forward,
+         k1_vs_plain_rel_l2=k1_vs_plain, tol=LOGITS_REL_L2,
+         k1_vs_f32_rel_l2=k1_vs_f32, plain_vs_f32_rel_l2=plain_vs_f32,
+         f32_ratio_tol=LOGITS_F32_RATIO, int8_vs_bf16_rel_l2=int8_vs_bf16,
+         int8_tol=VIT_INT8_REL_L2, timed=rows,
+         profile={"batch": VIT_BATCHES[0], "busy_ms": busy,
+                  "unprofiled_ms": unprofiled,
+                  "idle_share": 1 - busy / unprofiled if busy else None,
+                  "k1_share_of_busy": k1_ms / busy if busy else None,
+                  "top_kernels_ms": top[:6]},
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def phase_ppo_train(device):
+    """PPO with the default Nature-CNN module on the Atari-shaped
+    CnnRolloutBenchEnv (84x84x4 uint8): the local runner's policy and the
+    learner on the card."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.core.learner import tree_leaves, tree_map
+    from ray_tpu_torch.rllib.env.vector_env import CnnRolloutBenchEnv
+
+    def creator(n):
+        return CnnRolloutBenchEnv(n, seed=SEED)
+    creator.makes_batched_env = True
+
+    batch = PPO_ENVS * PPO_FRAGMENT
+    minibatches = PPO_EPOCHS * (batch // PPO_MINIBATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    algo = (PPOConfig().environment(env_creator=creator)
+            .env_runners(num_envs_per_env_runner=PPO_ENVS,
+                         rollout_fragment_length=PPO_FRAGMENT)
+            .training(train_batch_size=batch, minibatch_size=PPO_MINIBATCH,
+                      num_epochs=PPO_EPOCHS)
+            .debugging(seed=SEED).build())
+    try:
+        learner = algo.learner_group.learner
+        runner = algo.env_runner_group.local_runner
+        before = learner.get_weights()
+        results = [algo.train()]  # warm-up
+        t0 = time.perf_counter()
+        results += [algo.train() for _ in range(PPO_TIMED_ITERS)]
+        wall = time.perf_counter() - t0
+        after = learner.get_weights()
+        failures = []
+        for r in results:
+            if not (np.isfinite(r["total_loss"])
+                    and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+                failures.append(f"iteration {r['training_iteration']}: loss "
+                                f"{r['total_loss']}, grad_norm "
+                                f"{r['grad_norm']}")
+        if all(np.array_equal(a, b) for a, b in zip(tree_leaves(before),
+                                                     tree_leaves(after))):
+            failures.append("the learner's weights did not change")
+        steps = results[-1]["timesteps_total"]
+        if steps != batch * len(results):
+            failures.append(f"{steps} env steps counted, not "
+                            f"{batch * len(results)}")
+        if learner.device.type != "cuda" or runner.device.type != "cuda":
+            failures.append(f"learner on {learner.device}, runner on "
+                            f"{runner.device}")
+        # The card's policy against the same params on the CPU.
+        obs = CnnRolloutBenchEnv(PPO_ENVS, seed=SEED + 1).reset()
+        with torch.no_grad():
+            on_card = runner.module.forward(
+                runner.params, torch.from_numpy(obs).to(device))["logits"]
+            on_cpu = runner.module.forward(
+                tree_map(lambda t: t.cpu(), runner.params),
+                torch.from_numpy(obs))["logits"]
+        policy_rel = rel_l2(on_card.cpu(), on_cpu)
+        if not policy_rel <= PPO_POLICY_REL_L2:
+            failures.append(f"policy logits: card vs CPU {policy_rel} (tol "
+                            f"{PPO_POLICY_REL_L2})")
+        timed = results[1:]
+        learner_rel, learner_rel_tf32 = _ppo_learner_check(algo, learner,
+                                                           device)
+        if not learner_rel <= PPO_LEARNER_REL_L2:
+            failures.append(f"learner update: card vs CPU {learner_rel} "
+                            f"(tol {PPO_LEARNER_REL_L2})")
+        sample_s = sum(r["sample_time_s"] for r in timed)
+        learn_s = sum(r["learn_time_s"] for r in timed)
+        iter_s = wall / PPO_TIMED_ITERS
+        busy, top = _device_profile(algo.train)
+        emit("ppo_train", ok=not failures, failures=failures,
+             module="CNNModule (NATURE_CONV, hidden 512)",
+             env="CnnRolloutBenchEnv", obs=[84, 84, 4], num_envs=PPO_ENVS,
+             fragment=PPO_FRAGMENT, train_batch=batch,
+             minibatch=PPO_MINIBATCH, epochs=PPO_EPOCHS,
+             minibatches_per_iter=minibatches,
+             devices={"runner": str(runner.device),
+                      "learner": str(learner.device)},
+             results=[{k: r[k] for k in (
+                 "training_iteration", "total_loss", "policy_loss",
+                 "vf_loss", "entropy", "approx_kl", "grad_norm",
+                 "sample_time_s", "learn_time_s", "time_this_iter_s",
+                 "timesteps_total")} for r in results],
+             iter_ms=iter_s * 1e3,
+             env_steps_per_s=batch / iter_s,
+             sample_env_steps_per_s=batch * PPO_TIMED_ITERS / sample_s,
+             learner_ms_per_minibatch=learn_s * 1e3 / (
+                 minibatches * PPO_TIMED_ITERS),
+             sample_share=sample_s / wall, learn_share=learn_s / wall,
+             policy_card_vs_cpu_rel_l2=policy_rel, tol=PPO_POLICY_REL_L2,
+             learner_update_card_vs_cpu_rel_l2=learner_rel,
+             learner_update_tol=PPO_LEARNER_REL_L2,
+             learner_update_tf32_card_vs_cpu_rel_l2=learner_rel_tf32,
+             profile={"busy_ms": busy, "unprofiled_ms": iter_s * 1e3,
+                      "idle_share": 1 - busy / (iter_s * 1e3)
+                      if busy else None,
+                      "top_kernels_ms": top[:8]},
+             peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    finally:
+        algo.stop()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _ppo_learner_check(algo, learner, device):
+    """The parameter change of PPO_CHECK_STEPS learner updates on one fixed
+    on-policy batch (shuffle off), on the card against the CPU, both from
+    the learner's state: the worst relative L2 per leaf. Then the same on
+    the card with cuDNN's TF32 allowed in the convs and their gradients
+    (the port keeps it off), to show what the bound tells apart. Returns
+    (f32 reading, TF32 reading)."""
+    from unittest import mock
+
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib.core import catalog
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+    from ray_tpu_torch.rllib.utils.rollout import fragments_to_ppo_batch
+
+    cfg = algo._algo_config.copy().training(lr=PPO_CHECK_LR)
+    state = learner.get_state()
+    # On-policy: the ratio starts at 1, away from PPO's clip.
+    algo.env_runner_group.sync_weights(state["params"])
+    frags = algo.env_runner_group.sample_fragments(PPO_FRAGMENT)
+    batch = fragments_to_ppo_batch(frags, gamma=cfg.gamma, lam=cfg.lambda_)
+    rows = PPO_CHECK_MINIBATCH * PPO_CHECK_STEPS
+    batch = {k: v[:rows] for k, v in batch.items()}
+    start = tree_leaves(state["params"])
+
+    def change(dev):
+        other = PPOLearner(learner.module, cfg, device=dev)
+        other.set_state(state)
+        other.update(batch, minibatch_size=PPO_CHECK_MINIBATCH,
+                     shuffle=False)
+        return [torch.from_numpy(w - s) for w, s in
+                zip(tree_leaves(other.get_weights()), start)]
+
+    def tf32_convs():
+        cudnn = torch.backends.cudnn
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic, allow_tf32=True)
+
+    want = change("cpu")
+    f32 = change(device)
+    with mock.patch.object(catalog, "f32_convs", tf32_convs):
+        tf32 = change(device)
+    return tuple(max(rel_l2(a, b) for a, b in zip(got, want))
+                 for got in (f32, tf32))
+
+
 def bwd_flops(B, S, H, D, causal, products):
     """K2 (3 products) or K3 (4): 2 flops a multiply-add over the (query,
     key) pairs the mask keeps."""
@@ -1675,6 +1974,9 @@ def phase_kernel_time(fa, device):
     # attention against another chunk's keys, no mask.
     shapes.append((1, SP_SEQ // SP_RANKS, SP_HEADS, SP_KV_HEADS,
                    SP_HEAD_DIM, "", False))
+    # ViT-L at vit_infer's batch 64, no mask.
+    shapes.append((VIT_BATCHES[0], VIT_SEQ, VIT_HEADS, VIT_HEADS,
+                   VIT_HEAD_DIM, "qkv", False))
     for B, S, H, KVH, D, fused, causal in shapes:
         q, k, v = attn_inputs(7, B, S, H, KVH, D, device, fused=fused)
         scale = D ** -0.5
@@ -1788,6 +2090,11 @@ def main() -> int:
                                      moe_losses)
     gc_collect()
     phase_train_grad_check(device)
+    gc_collect()
+    vit_launches = phase_vit_infer(fa, device)
+    gc_collect()
+    phase_ppo_train(device)
+    gc_collect()
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 
     kernels = [{
@@ -1797,12 +2104,13 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:47",
         "launches": (serve_launches + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
-                     + dist_launches["flash_fwd"]),
+                     + dist_launches["flash_fwd"] + vit_launches),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,
-                             "dist_train": dist_launches["flash_fwd"]},
+                             "dist_train": dist_launches["flash_fwd"],
+                             "vit": vit_launches},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
         "device_ms": fwd_timed["device_ms"],

@@ -1,4 +1,5 @@
-"""Carry transformer parameters between the JAX package and the port.
+"""Carry transformer and ViT parameters between the JAX package and the
+port.
 
 The JAX parameter pytree, converted leaf by leaf with ``np.asarray``, has
 the same names and shapes as the port's parameters (layers stacked
@@ -19,6 +20,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .device import DeviceLike, resolve_device
+from .models import vit
 from .models.quantize import SCALE_SUFFIX
 from .models.transformer import (TransformerConfig, param_logical_specs,
                                  param_spec)
@@ -56,8 +58,20 @@ def params_from_numpy(tree: Params, cfg: TransformerConfig,
                       device: DeviceLike = None) -> Params:
     """JAX param tree of numpy arrays -> the port's params on ``device``.
     Names and shapes are checked against ``cfg``; leaf dtypes are kept."""
+    return _tree_from_numpy(tree, param_spec(cfg), device)
+
+
+def vit_params_from_numpy(tree: Params, cfg: vit.ViTConfig,
+                          device: DeviceLike = None) -> Params:
+    """The same for the JAX ViT's param tree (``models/vit.py``): names and
+    shapes checked against ``cfg``, int8 ``_q8_scale`` siblings carried
+    across."""
+    return _tree_from_numpy(tree, vit.param_spec(cfg), device)
+
+
+def _tree_from_numpy(tree: Params, spec: Params,
+                     device: DeviceLike) -> Params:
     device = resolve_device(device)
-    spec = param_spec(cfg)
     layer_spec = spec["layers"]
     top = {k: v for k, v in tree.items() if k != "layers"}
     _check_names("params", top, [k for k in spec if k != "layers"])
@@ -99,7 +113,8 @@ def params_to_mesh(tree: Params, cfg: TransformerConfig, mesh,
 
 
 def params_to_numpy(params: Params) -> Params:
-    """The inverse of :func:`params_from_numpy`: a tree of numpy arrays on
+    """The inverse of :func:`params_from_numpy` and
+    :func:`vit_params_from_numpy`: a tree of numpy arrays on
     the host. bfloat16 leaves come out as float32 (numpy has no bfloat16
     of its own), which is exact. DTensor leaves are gathered whole (every
     rank of their mesh calls this)."""
@@ -114,3 +129,4 @@ def params_to_numpy(params: Params) -> Params:
     out: Params = {k: leaf(v) for k, v in params.items() if k != "layers"}
     out["layers"] = {k: leaf(v) for k, v in params["layers"].items()}
     return out
+

@@ -26,8 +26,19 @@ ticks changes no result (their outputs and aux losses were masked anyway).
   microbatch adds one mean per layer).
 - Microbatch m is the batch rows [m*B/M, (m+1)*B/M), as in the reference:
   routing groups are drawn within a microbatch, so MoE needs the same rows.
-  The rows are reordered once before the embedding so that each rank's
-  microbatches are contiguous pieces of its own batch shard.
+  The microbatches meet the batch shards (data x fsdp) in one of three
+  layouts (:func:`microbatch_layout`). "split": B/M divides over the
+  shards, and each shard holds its piece of every microbatch (the rows are
+  reordered once before the embedding so that a rank's pieces are
+  contiguous). "whole": M divides over the shards, and each shard holds
+  M/shards whole microbatches, its own rows in their order; a dense stack
+  only, since MoE gathers router probabilities over the batch axes and
+  would route two microbatches of one tick as one group. "replicated":
+  every other case, and MoE where "split" does not apply: each
+  microbatch's rows are replicated over the batch axes (the loss runs with
+  ``batch`` mapped to no mesh axis), so every batch rank computes the same
+  gradient, which is then the whole batch's, averaged over the ranks and
+  not summed. The loss is the mean over the global batch in each.
 """
 from __future__ import annotations
 
@@ -156,10 +167,13 @@ def _batch_axes(mesh, rules) -> Tuple[str, ...]:
 
 def pipeline_apply(cfg, layers: Dict[str, Any], x: DTensor, mesh,
                    rules: Optional[shd.Rules] = None,
-                   num_microbatches: int = 4) -> Tuple[DTensor, Any]:
-    """Run the layer stack on x [B, S, d] (rows ordered by
-    :func:`microbatch_order`) as a P-stage GPipe pipeline. Returns (y [B,
-    S, d], the summed MoE aux loss over M: None for dense stacks)."""
+                   num_microbatches: int = 4,
+                   layout: str = "split") -> Tuple[DTensor, Any]:
+    """Run the layer stack on x [B, S, d] as a P-stage GPipe pipeline, its
+    rows laid out as ``layout`` says (:func:`microbatch_layout`; "split"
+    rows ordered by :func:`microbatch_order`, "replicated" under rules
+    that map ``batch`` to no axis). Returns (y [B, S, d], the summed MoE
+    aux loss over M: None for dense stacks)."""
     from ..models.transformer import (_positions, iter_layers,
                                       layer_scan_body, run_layers)
 
@@ -180,15 +194,20 @@ def pipeline_apply(cfg, layers: Dict[str, Any], x: DTensor, mesh,
     B, S, d = x.shape
     xl = _FromFirstStage.apply(x.redistribute(dmesh, act).to_local(), first,
                                group)
-    per_rank = xl.shape[0] // M
+    # A rank's microbatches: all M, or its M/shards whole ones.
+    ticks = M // _n_shards(stage_mesh, inner_rules) if layout == "whole" \
+        else M
+    per_rank = xl.shape[0] // ticks
     stage_layers = list(iter_layers(
         {"layers": {k: _on_stage(w, smesh) for k, w in layers.items()}}))
-    positions = _positions(B // M, S, xl.device)
+    # Rows of a tick's activations across the batch shards.
+    positions = _positions(
+        per_rank * _n_shards(stage_mesh, inner_rules), S, xl.device)
     anchor = torch.zeros((), device=xl.device, requires_grad=True)
     outs, links, auxs = [], [xl], []
     with shd.sharding_ctx(stage_mesh, inner_rules):
         body = layer_scan_body(cfg, positions)
-        for m in range(M):
+        for m in range(ticks):
             if stage == 0:
                 h = xl[m * per_rank:(m + 1) * per_rank]
             else:
@@ -213,6 +232,32 @@ def pipeline_apply(cfg, layers: Dict[str, Any], x: DTensor, mesh,
     aux = _SumOverStages.apply(sum(auxs[1:], auxs[0]), group) / M
     return y, DTensor.from_local(aux, dmesh, (Replicate(),) * dmesh.ndim,
                                  run_check=False)
+
+
+def _n_shards(mesh, rules) -> int:
+    """How many ways ``rules`` split the batch on ``mesh``."""
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in _batch_axes(mesh, rules))
+
+
+def microbatch_layout(B: int, M: int, n_batch: int, moe: bool) -> str:
+    """How M microbatches of B/M rows meet ``n_batch`` batch shards:
+    "split" (B/M divides over them), "whole" (M does; dense only) or
+    "replicated" (see the module docstring)."""
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by num_microbatches {M}")
+    if (B // M) % n_batch == 0:
+        return "split"
+    if M % n_batch == 0 and not moe:
+        return "whole"
+    return "replicated"
+
+
+def _replicate(t: DTensor) -> DTensor:
+    """A batch-split DTensor made whole on every rank (tokens and masks)."""
+    if t.ndim == 0:
+        return t
+    return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
 
 
 def microbatch_order(B: int, M: int, n_batch: int) -> torch.Tensor:
@@ -252,26 +297,30 @@ def pipeline_loss_fn(cfg, mesh, *, rules: Optional[shd.Rules] = None,
     rules = rules or shd.DEFAULT_RULES
     M = num_microbatches
     batch_axes = _batch_axes(mesh, rules)
-    shape = mesh_shape(mesh)
-    n_batch = math.prod(shape[a] for a in batch_axes)
+    n_batch = _n_shards(mesh, rules)
+    # The same rules with the batch on no mesh axis: "replicated" runs the
+    # whole loss under them.
+    whole_batch_rules = {**rules, "batch": None}
 
     def loss_fn(params, batch):
-        tokens = batch["tokens"]
-        B = tokens.shape[0]
-        if B % M:
-            raise ValueError(f"batch {B} not divisible by "
-                             f"num_microbatches {M}")
-        if (B // M) % n_batch:
-            raise ValueError(f"microbatch {B // M} does not split over the "
-                             f"{n_batch} batch shards")
-        if n_batch > 1:
-            order = microbatch_order(B, M, n_batch)
+        layout = microbatch_layout(batch["tokens"].shape[0], M, n_batch,
+                                   bool(cfg.moe_num_experts))
+        if layout == "replicated":
+            batch = {k: _replicate(v) for k, v in batch.items()}
+            with shd.sharding_ctx(mesh, whole_batch_rules):
+                return _loss(params, batch, whole_batch_rules, layout)
+        if layout == "split" and n_batch > 1:
+            order = microbatch_order(batch["tokens"].shape[0], M, n_batch)
             batch = {k: _take_rows(v, order, batch_axes, mesh)
                      for k, v in batch.items()}
-            tokens = batch["tokens"]
+        return _loss(params, batch, rules, layout)
+
+    def _loss(params, batch, rules, layout):
+        tokens = batch["tokens"]
         inputs = tokens[:, :-1] if shift_inputs else tokens
         x = tfm.embed_tokens(params, inputs, cfg)
-        y, aux = pipeline_apply(cfg, params["layers"], x, mesh, rules, M)
+        y, aux = pipeline_apply(cfg, params["layers"], x, mesh, rules, M,
+                                layout)
         y = shd.maybe_constrain(y, ("batch", "seq_act", "embed"))
         logits = tfm.lm_head(params, y, cfg)
         if shift_inputs:

@@ -1,5 +1,6 @@
 """The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor any
-module of the JAX package, and its entry points refuse to fall back to the
+module of the JAX package (nor gymnasium, but inside the functions that
+build a gymnasium env), and its entry points refuse to fall back to the
 CPU on their own."""
 import pathlib
 import re
@@ -16,12 +17,14 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["gymnasium"] = None    # and `import gymnasium`
 sys.path.insert(0, {repo!r})
 import ray_tpu_torch
 names = ["ray_tpu_torch"]
 for info in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     importlib.import_module(info.name)
     names.append(info.name)
+importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules
                 if m == "ray_tpu" or m.startswith("ray_tpu.")
                 or m == "jax" and sys.modules[m] is not None
@@ -38,8 +41,9 @@ def test_package_imports_without_jax_or_ray_tpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("IMPORTED", "LEAKED")))
-    # ops.flash_attention, models.generate, serve.llm_engine, convert, ...
-    assert int(lines["IMPORTED"]) >= 12
+    # ops.flash_attention, models.generate, serve.llm_engine, convert,
+    # models.vit, rllib.* ... and chip_smoke.py
+    assert int(lines["IMPORTED"]) >= 30
     assert lines["LEAKED"] == "[]"
 
 
@@ -75,3 +79,32 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
                                    max_prompt_len=8, max_new_tokens=2,
                                    device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_vit_and_rl_entry_points_raise_when_cuda_is_absent(monkeypatch):
+    """ViT's init_params, the env runner, the learner and PPOConfig.build:
+    the card unless the caller asks for the CPU."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+    from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+
+    def creator(n):
+        return CartPoleBatchedEnv(n)
+    creator.makes_batched_env = True
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cases = [
+        lambda **kw: vit.init_params(torch.Generator().manual_seed(0),
+                                     vit.vit_tiny(), **kw),
+        lambda **kw: SingleAgentEnvRunner(creator, lambda: MLPModule(4, 2),
+                                          num_envs=2, **kw),
+        lambda **kw: PPOLearner(MLPModule(4, 2), PPOConfig(), **kw),
+        lambda **kw: PPOConfig().environment(env_creator=creator)
+        .resources(**kw).build(),
+    ]
+    for make in cases:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        make(device="cpu")

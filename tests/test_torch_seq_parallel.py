@@ -101,6 +101,9 @@ def _batches():
             np.int32)},
         "masked": {"tokens": rng.integers(0, 512, (B, S)).astype(np.int32),
                    "mask": (rng.random((B, S)) > 0.2).astype(np.int32)},
+        # 3 rows: split over no batch shards of 2, by rows or microbatches.
+        "plain3": {"tokens": rng.integers(0, 512, (3, S + 1)).astype(
+            np.int32)},
     }
 
 
@@ -309,7 +312,13 @@ def _jax_run(layout, inputs):
         rules = getattr(jshd, rules)
         params = jax.device_put(inputs["params"][model], jshd.tree_shardings(
             mesh, jtfm.param_logical_specs(jcfg), rules))
-        sharded = jshd.shard_batch(mesh, inputs["batches"][batch])
+        host = inputs["batches"][batch]
+        if len(host["tokens"]) % (mesh.shape["data"] * mesh.shape["fsdp"]):
+            # The JAX package places no batch whose rows do not divide
+            # over the batch shards; GSPMD lays it out inside the step.
+            sharded = jax.device_put(host, jshd.replicated(mesh))
+        else:
+            sharded = jshd.shard_batch(mesh, host)
         if _pipelined(layout):
             loss_fn = pipeline_loss_fn(jcfg, mesh, rules=rules,
                                        num_microbatches=micro,
@@ -343,7 +352,7 @@ def _one_device_run(layout, inputs):
     tb = {k: torch.from_numpy(v).long()
           for k, v in inputs["batches"][batch].items()}
     parts = micro if _pipelined(layout) else 1
-    rows = B // parts
+    rows = len(tb["tokens"]) // parts
     losses, grads = [], None
     for _ in range(STEPS):
         opt.zero_grad(set_to_none=True)

@@ -14,9 +14,15 @@ gradients within 1e-5 relative L2 per leaf, f32 everywhere).
   loss need the other shard's routing.
 - The pipeline on pipe=2 x data=2 and pipe=2 x fsdp=2 (dense) and pipe=2 x
   expert=2 (MoE), M=4. Its one-device reference is the mean of the
-  one-device losses of the 4 microbatches (MoE routes within a
+  one-device losses of the M microbatches (MoE routes within a
   microbatch, as the JAX pipeline does); for a dense stack that is the
   whole batch's loss.
+- The microbatches that do not split over the batch shards (fault C4,
+  once refused): pipe=2 x data=2 at B=8, M=8 holds 4 whole microbatches
+  a shard (dense) or replicates each over data (MoE, whose routing group
+  must stay the microbatch); at B=3, M=3 neither B/M nor M divides over
+  data, and the microbatches are replicated. Both again on pipe=2 x
+  fsdp=2, where the params are sharded over the batch axis.
 """
 import dataclasses
 
@@ -40,6 +46,18 @@ LAYOUTS = {
                     "plain", True, {}, M),
     "moe_pipe2_expert2": (dict(pipe=2, expert=2), "RULES_TP", "moe_tiny",
                           "plain", True, {}, M),
+    "pipe2_data2_m8_whole": (dict(pipe=2, data=2), "RULES_TP", "llama_tiny",
+                             "plain", True, {}, 8),
+    "moe_pipe2_data2_m8_replicated": (dict(pipe=2, data=2), "RULES_TP",
+                                      "moe_tiny", "plain", True, {}, 8),
+    "pipe2_data2_b3_m3_replicated": (dict(pipe=2, data=2), "RULES_TP",
+                                     "llama_tiny", "plain3", True, {}, 3),
+    # The same two layouts with the params sharded over fsdp, whose
+    # gradients come back through DTensor's backward of the gather.
+    "pipe2_fsdp2_m8_whole": (dict(pipe=2, fsdp=2), "RULES_TP", "llama_tiny",
+                             "plain", True, {}, 8),
+    "pipe2_fsdp2_b3_m3_replicated": (dict(pipe=2, fsdp=2), "RULES_TP",
+                                     "llama_tiny", "plain3", True, {}, 3),
 }
 
 
