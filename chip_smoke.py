@@ -96,15 +96,39 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    learner on the card: 1 warm-up and 3 timed iterations; finite losses
    and gradient norms, changed weights, env steps counted, the card's
    policy logits within PPO_POLICY_REL_L2 of the same params on the CPU,
-   and the parameter change of 3 learner updates on one on-policy batch
-   (shuffle off) within PPO_LEARNER_REL_L2 per leaf of the same updates
-   on the CPU from the same learner state (the same updates with cuDNN's
-   TF32 allowed are read beside it, ungated).
+   and the parameter change Adam applied in 3 learner updates on one
+   on-policy batch (shuffle off) within PPO_LEARNER_REL_L2 per leaf of the
+   same updates on the CPU from the same learner state, the CPU's ReLU
+   decisions replayed on the card (the same updates with cuDNN's TF32
+   allowed, and the stored parameters' change, which carries their f32
+   rounding, are read beside it, ungated).
    Prints env-steps/s (sampling alone and whole iterations), learner ms a
    minibatch, the sampling/learning split and one profiled iteration's
    idle share. No kernel of the port runs there (convolutions and dense
    layers are cuDNN and cuBLAS calls, as the reference's are XLA's).
-9. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+9. Off-policy, offline and multi-agent RL, the JAX package's defaults,
+   runner and learner on the card (no kernel of the port runs there: MLP
+   products in f32, TF32 off): ``dqn_train`` (DQN, MLP 64-64, on
+   ``CartPoleBatchedEnv(16)`` through the runner's episode path, 1 warm-up
+   and 3 timed iterations of 4000 env steps and 32 TD updates of 128
+   rows, uniform replay and then prioritized: finite losses, changed
+   weights, the epsilon schedule in the runner's weights, the target
+   synced every iteration, every env step in the buffer, one
+   ``update_td`` on the card within OFFPOLICY_UPDATE_REL_L2 per leaf of
+   the CPU's from the same state); ``sac_train`` (SAC, actor and twin Q
+   256-256, on ``PendulumBatchedEnv(16)``, gymnasium's Pendulum-v1 in
+   numpy defined here: alpha moves, the targets move by polyak, actions
+   inside the Box, one ``update_sac`` with given noise card against CPU);
+   ``offline_train`` (CQL on the SAC buffer's transitions through
+   ``write_transitions``, BC and MARWIL on CartPole fragments through
+   ``write_fragments``, 2 iterations each: no env steps, one update each
+   card against CPU); ``multi_agent_train`` (PPO's shared policy on
+   ``MultiAgentBatchedEnv`` over ``TwoAgentEnv``, defined here: every live
+   column's steps counted, the dead ones masked). Each prints env-steps/s
+   or SGD steps/s; DQN and SAC also updates/s, ms an update, the
+   sampling/learning split, one profiled iteration's idle share and peak
+   memory.
+10. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: device time on contiguous copies, each backend that takes
@@ -213,10 +237,24 @@ PPO_TIMED_ITERS = 3
 PPO_POLICY_REL_L2 = 1e-4
 # The learner's update on the card against the CPU's: 3 minibatches of 512
 # rows at lr 1e-4 (as tests/test_torch_rllib.py holds the JAX learner), the
-# worst relative L2 of the parameter change per leaf. The convs and their
+# worst relative L2 per leaf of the change Adam applied, before the
+# parameters' own f32 rounding (applied_change). The convs and their
 # gradients are f32 on both sides; TF32 would read about 1e-3.
 PPO_CHECK_MINIBATCH, PPO_CHECK_STEPS, PPO_CHECK_LR = 512, 3, 1e-4
 PPO_LEARNER_REL_L2 = 1e-4
+# Off-policy, offline and multi-agent RL: the JAX package's defaults
+# (DQNConfig, SACConfig, CQLConfig, BCConfig, MARWILConfig) on 16 envs; one
+# warm-up and 3 timed iterations of DQN and SAC (4000 env steps each);
+# offline, two fragments of 256 steps over 16 envs (8192 rows) and 2
+# iterations of 32 SGD steps; multi-agent, 8 instances of two agents, a
+# fragment of 64. One update on the card against the same on the CPU from
+# the same learner state (and noise): the worst relative L2 per leaf of
+# the change Adam applied (applied_change), f32 products on both sides
+# (TF32 off).
+RL_ENVS, RL_WARM_ITERS, RL_TIMED_ITERS = 16, 1, 3
+OFFLINE_FRAGMENT, OFFLINE_ITERS = 256, 2
+MA_INSTANCES, MA_FRAGMENT, MA_ITERS = 8, 64, 2
+OFFPOLICY_UPDATE_REL_L2 = 1e-4
 SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
 SP_REL_L2 = 2e-2
 # moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
@@ -676,7 +714,9 @@ def phase_prefill_time(cfg, params, prompts, device):
 
 def _device_profile(fn):
     """Run ``fn`` under torch.profiler; returns (device busy ms, every
-    kernel as [name, ms], by device time)."""
+    kernel and copy as [name, ms], by device time). The spans that
+    annotations such as ``Optimizer.step`` lay over the device's timeline
+    are left out: they cover the kernels in them and idle time too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,7 +726,8 @@ def _device_profile(fn):
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     return busy_us / 1e3, [[e.key[:80], e.self_device_time_total / 1e3]
@@ -1738,10 +1779,7 @@ def phase_ppo_train(device):
     from ray_tpu_torch.rllib.core.learner import tree_leaves, tree_map
     from ray_tpu_torch.rllib.env.vector_env import CnnRolloutBenchEnv
 
-    def creator(n):
-        return CnnRolloutBenchEnv(n, seed=SEED)
-    creator.makes_batched_env = True
-
+    creator = batched_creator(CnnRolloutBenchEnv)
     batch = PPO_ENVS * PPO_FRAGMENT
     minibatches = PPO_EPOCHS * (batch // PPO_MINIBATCH)
     torch.cuda.reset_peak_memory_stats(device)
@@ -1790,8 +1828,8 @@ def phase_ppo_train(device):
             failures.append(f"policy logits: card vs CPU {policy_rel} (tol "
                             f"{PPO_POLICY_REL_L2})")
         timed = results[1:]
-        learner_rel, learner_rel_tf32 = _ppo_learner_check(algo, learner,
-                                                           device)
+        learner_rel, learner_rel_tf32, learner_rel_stored, relu_flips = (
+            _ppo_learner_check(algo, learner, device))
         if not learner_rel <= PPO_LEARNER_REL_L2:
             failures.append(f"learner update: card vs CPU {learner_rel} "
                             f"(tol {PPO_LEARNER_REL_L2})")
@@ -1822,6 +1860,8 @@ def phase_ppo_train(device):
              learner_update_card_vs_cpu_rel_l2=learner_rel,
              learner_update_tol=PPO_LEARNER_REL_L2,
              learner_update_tf32_card_vs_cpu_rel_l2=learner_rel_tf32,
+             learner_update_stored_card_vs_cpu_rel_l2=learner_rel_stored,
+             learner_update_relu_flips=relu_flips,
              profile={"busy_ms": busy, "unprofiled_ms": iter_s * 1e3,
                       "idle_share": 1 - busy / (iter_s * 1e3)
                       if busy else None,
@@ -1833,13 +1873,52 @@ def phase_ppo_train(device):
         raise AssertionError("; ".join(failures))
 
 
+@contextlib.contextmanager
+def shared_relu_masks(masks, replay=True):
+    """``torch.relu`` as ``x * mask`` for the block. With ``masks`` empty,
+    each call's mask (``x > 0``) is appended to it; otherwise the calls
+    take theirs from it in order (each its own with ``replay`` false), and
+    the yielded list gathers, per call, how many of those decisions differ
+    from the call's own. Two f32 runs of a ReLU net differ in a
+    pre-activation's last bits, and where one lies that close to 0 its
+    gradient takes the row's whole term on one side and none on the
+    other: one such flip in the trunk moves the trunk's update by 1e-3
+    after 3 Adam steps. Replaying one side's decisions on the other leaves
+    the comparison to read the arithmetic."""
+    from unittest import mock
+
+    import torch
+
+    record = not masks
+    recorded = iter(list(masks))
+    flips = []
+
+    def relu(x):
+        mask = x > 0
+        if record:
+            masks.append(mask)
+        else:
+            theirs = next(recorded).to(x.device)
+            flips.append((theirs != mask).sum())
+            if replay:
+                mask = theirs
+        return x * mask
+
+    with mock.patch.object(torch, "relu", relu):
+        yield flips
+
+
 def _ppo_learner_check(algo, learner, device):
     """The parameter change of PPO_CHECK_STEPS learner updates on one fixed
     on-policy batch (shuffle off), on the card against the CPU, both from
-    the learner's state: the worst relative L2 per leaf. Then the same on
-    the card with cuDNN's TF32 allowed in the convs and their gradients
-    (the port keeps it off), to show what the bound tells apart. Returns
-    (f32 reading, TF32 reading)."""
+    the learner's state and with the CPU's ReLU decisions
+    (:func:`shared_relu_masks`): the worst relative L2 per leaf of the
+    change Adam applied (:func:`applied_change`). Then the same on the
+    card with cuDNN's TF32 allowed in the convs and their gradients (the
+    port keeps it off), to show what the bound tells apart. Returns the
+    f32 reading, the TF32 reading, the f32 reading of the stored
+    parameters' change, and how many ReLU decisions of the card's f32 run
+    differed from the CPU's."""
     from unittest import mock
 
     import torch
@@ -1858,14 +1937,17 @@ def _ppo_learner_check(algo, learner, device):
     rows = PPO_CHECK_MINIBATCH * PPO_CHECK_STEPS
     batch = {k: v[:rows] for k, v in batch.items()}
     start = tree_leaves(state["params"])
+    masks = []
 
     def change(dev):
         other = PPOLearner(learner.module, cfg, device=dev)
         other.set_state(state)
-        other.update(batch, minibatch_size=PPO_CHECK_MINIBATCH,
-                     shuffle=False)
-        return [torch.from_numpy(w - s) for w, s in
-                zip(tree_leaves(other.get_weights()), start)]
+        applied = applied_change(other)
+        with shared_relu_masks(masks) as flips:
+            other.update(batch, minibatch_size=PPO_CHECK_MINIBATCH,
+                         shuffle=False)
+        return applied, [torch.from_numpy(w - s) for w, s in zip(
+            tree_leaves(other.get_weights()), start)], int(sum(flips))
 
     def tf32_convs():
         cudnn = torch.backends.cudnn
@@ -1876,8 +1958,639 @@ def _ppo_learner_check(algo, learner, device):
     f32 = change(device)
     with mock.patch.object(catalog, "f32_convs", tf32_convs):
         tf32 = change(device)
-    return tuple(max(rel_l2(a, b) for a, b in zip(got, want))
-                 for got in (f32, tf32))
+    return (change_rel_l2(f32[0], want[0]), change_rel_l2(tf32[0], want[0]),
+            change_rel_l2(f32[1], want[1]), f32[2])
+
+
+class PendulumBatchedEnv:
+    """gymnasium's Pendulum-v1 for ``num_envs`` envs at once, in numpy (the
+    card's machine has no gymnasium): its dynamics, reward and reset
+    distribution, the 200-step truncation of its TimeLimit, and
+    gymnasium's next-step autoreset (the step after a done ignores its
+    action and returns the reset observation with reward 0). The state is
+    f64 and the torque f32, as there. A BatchedEnv of the port by its
+    attributes (``rllib/env/vector_env.py``)."""
+
+    autoreset_mode = "next_step"
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+    MAX_STEPS = 200
+
+    def __init__(self, num_envs: int, seed: int = 0):
+        import numpy as np
+
+        from ray_tpu_torch.rllib.spaces import Box
+
+        self.num_envs = num_envs
+        self._rng = np.random.default_rng(seed)
+        self.state = np.zeros((num_envs, 2))  # theta, theta_dot
+        self._t = np.zeros(num_envs, np.int64)
+        self._needs_reset = np.zeros(num_envs, bool)
+        high = np.array([1.0, 1.0, self.MAX_SPEED], np.float32)
+        self.single_observation_space = Box(-high, high, (3,), np.float32)
+        self.single_action_space = Box(-self.MAX_TORQUE, self.MAX_TORQUE,
+                                       (1,), np.float32)
+
+    def _reset_rows(self, rows) -> None:
+        import numpy as np
+
+        n = int(rows.sum())
+        if n:
+            self.state[rows] = self._rng.uniform([-np.pi, -1.0],
+                                                 [np.pi, 1.0], (n, 2))
+            self._t[rows] = 0
+
+    def _obs(self):
+        import numpy as np
+
+        th, thdot = self.state.T
+        return np.stack([np.cos(th), np.sin(th), thdot], 1).astype(np.float32)
+
+    def reset(self, seed=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._reset_rows(np.ones(self.num_envs, bool))
+        self._needs_reset[:] = False
+        return self._obs()
+
+    def step(self, actions):
+        import numpy as np
+
+        u = np.clip(np.asarray(actions, np.float32).reshape(
+            self.num_envs, -1)[:, 0], -self.MAX_TORQUE, self.MAX_TORQUE)
+        th, thdot = self.state.T
+        norm_th = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        new_thdot = thdot + (3 * self.G / (2 * self.L) * np.sin(th)
+                             + 3.0 / (self.M * self.L ** 2) * u) * self.DT
+        new_thdot = np.clip(new_thdot, -self.MAX_SPEED, self.MAX_SPEED)
+        new_state = np.stack([th + new_thdot * self.DT, new_thdot], 1)
+        live = ~self._needs_reset
+        self.state[live] = new_state[live]
+        self._t[live] += 1
+        rew = np.where(live, -costs, 0.0).astype(np.float32)
+        term = np.zeros(self.num_envs, bool)
+        trunc = live & (self._t >= self.MAX_STEPS)
+        self._reset_rows(self._needs_reset)
+        self._needs_reset = trunc.copy()
+        return self._obs(), rew, term, trunc
+
+    def close(self) -> None:
+        pass
+
+
+class TwoAgentEnv:
+    """A two-agent env of the multi-agent protocol (the shape of the JAX
+    package's tests' ``TagTeam``): both agents see one random state and
+    earn 1 for picking its parity; every episode lasts 8 steps, and agent
+    "b" truncates after 5, so its column is dead (masked) for the last 3."""
+
+    possible_agents = ("a", "b")
+    EPISODE, B_TRUNCATES = 8, 5
+
+    def __init__(self):
+        import numpy as np
+
+        from ray_tpu_torch.rllib.spaces import Box, Discrete
+
+        self.single_observation_space = Box(0, 1, (3,), np.float32)
+        self.single_action_space = Discrete(2)
+        self._t = 0
+        self._rng = np.random.default_rng(0)
+
+    def _obs(self):
+        import numpy as np
+
+        o = self._rng.random(3).astype(np.float32)
+        self._parity = int(o[0] > 0.5)
+        return {a: o for a in self.possible_agents}
+
+    def reset(self, seed=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._dead_b = False
+        return self._obs()
+
+    def step(self, actions):
+        self._t += 1
+        rew = {a: float(actions[a] == self._parity) for a in actions}
+        term = {"__all__": self._t >= self.EPISODE}
+        trunc = {}
+        if self._t == self.B_TRUNCATES and "b" in actions:
+            self._dead_b = True
+            trunc["b"] = True
+        obs = self._obs()
+        if self._dead_b:
+            obs.pop("b", None)
+        return obs, rew, term, trunc
+
+
+def batched_creator(cls, **kw):
+    """An ``env_creator`` that builds a whole BatchedEnv of ``n`` columns."""
+    def creator(n):
+        return cls(n, seed=SEED, **kw)
+    creator.makes_batched_env = True
+    return creator
+
+
+def change_rel_l2(got, want) -> float:
+    """The worst relative L2 over leaves of two parameter changes (lists
+    of tensors); a leaf neither changes (a head no loss reaches) reads 0,
+    and a NaN anywhere reads NaN (so no bound passes it)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        if b.norm() == 0:
+            rel = 0.0 if a.norm() == 0 else math.inf
+        else:
+            rel = float((a - b).norm() / b.norm())
+        if math.isnan(rel):
+            return rel
+        worst = max(worst, rel)
+    return worst
+
+
+def applied_change(learner):
+    """The parameter change that ``learner``'s Adam applies, summed per
+    leaf over its steps from here on: each step's ``-lr * m_hat /
+    (sqrt(v_hat) + eps)``, in f64 from the moments the step left. That is
+    the change before the parameters' own f32 rounding, which a stored
+    change carries and which no update can avoid: a leaf's stored change
+    is off by up to one ulp of its value, and for a 1-element leaf (a
+    value head's bias near 0.5-1, changed by 3e-4 in 3 steps) one ulp is
+    2e-4 of its change. Returns the list of per-leaf f64 CPU tensors that
+    the optimizer's step hook fills."""
+    import torch
+
+    total = [torch.zeros(p.shape, dtype=torch.float64)
+             for p in learner._leaves]
+    index = {id(p): i for i, p in enumerate(learner._leaves)}
+
+    def hook(optimizer, args, kwargs):
+        for group in optimizer.param_groups:
+            (b1, b2), lr, eps = group["betas"], group["lr"], group["eps"]
+            for p in group["params"]:
+                st = optimizer.state[p]
+                t = float(st["step"])
+                m = st["exp_avg"].double().cpu() / (1 - b1 ** t)
+                v = st["exp_avg_sq"].double().cpu() / (1 - b2 ** t)
+                total[index[id(p)]] -= lr * m / (v.sqrt() + eps)
+
+    learner.optimizer.register_step_post_hook(hook)
+    return total
+
+
+def learner_update_check(learner, make, call, targets=None):
+    """One update of ``learner``'s algorithm from its state, on the card
+    and on the CPU: the worst relative L2 per leaf of the change Adam
+    applied (:func:`applied_change`), and of the stored parameters'
+    change. ``make(device)`` builds a fresh learner; ``targets`` names the
+    target-network attribute to copy across; ``call(other)`` runs the
+    update. Returns (applied, stored)."""
+    import torch
+
+    from ray_tpu_torch.rllib.core.learner import tree_leaves, tree_map
+
+    state = learner.get_state()
+    start = [torch.from_numpy(x) for x in tree_leaves(state["params"])]
+    applied, stored = [], []
+    for dev in (learner.device, "cpu"):
+        other = make(dev)
+        other.set_state(state)
+        if targets is not None:
+            setattr(other, targets, tree_map(
+                lambda t: t.detach().to(other.device, copy=True),
+                getattr(learner, targets)))
+        applied.append(applied_change(other))
+        call(other)
+        stored.append([torch.from_numpy(w) - s for w, s in
+                       zip(tree_leaves(other.get_weights()), start)])
+    return change_rel_l2(*applied), change_rel_l2(*stored)
+
+
+def _offpolicy_speed(results, timed_wall, profile_busy, updates_per_iter,
+                     device):
+    """The speed fields of dqn_train and sac_train: over the timed
+    iterations (host clock), and one profiled iteration's device time."""
+    import torch
+
+    steps = sum(r["env_steps_this_iter"] for r in results)
+    sample_s = sum(r["sample_time_s"] for r in results)
+    learn_s = sum(r["learn_time_s"] for r in results)
+    iter_ms = timed_wall * 1e3 / len(results)
+    updates = updates_per_iter * len(results)
+    return {
+        "iter_ms": iter_ms,
+        "env_steps_per_s": steps / timed_wall,
+        "sample_env_steps_per_s": steps / sample_s,
+        "updates_per_s": updates / learn_s,
+        "ms_per_update": learn_s * 1e3 / updates,
+        "sample_share": sample_s / timed_wall,
+        "learn_share": learn_s / timed_wall,
+        "profile": {"busy_ms": profile_busy, "unprofiled_ms": iter_ms,
+                    "idle_share": 1 - profile_busy / iter_ms
+                    if profile_busy else None},
+        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+    }
+
+
+def phase_dqn_train(device):
+    """DQN with DQNConfig's defaults on CartPoleBatchedEnv(16) through the
+    runner's episode path over a BatchedEnv: uniform replay, then
+    prioritized."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig, DQNLearner
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+    from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+    from ray_tpu_torch.rllib.utils.replay_buffers import (
+        PrioritizedReplayBuffer)
+
+    failures, runs = [], []
+    for kind in ("uniform", "prioritized"):
+        torch.cuda.reset_peak_memory_stats(device)
+        cfg = (DQNConfig()
+               .environment(env_creator=batched_creator(CartPoleBatchedEnv))
+               .env_runners(num_envs_per_env_runner=RL_ENVS)
+               .training(replay_buffer_config={"type": kind})
+               .debugging(seed=SEED))
+        algo = cfg.build()
+        try:
+            learner = algo.learner_group.learner
+            runner = algo.env_runner_group.local_runner
+            before = learner.get_weights()
+            results, syncs, t_timed = [], 0, None
+            for i in range(RL_WARM_ITERS + RL_TIMED_ITERS):
+                if i == RL_WARM_ITERS:
+                    t_timed = time.perf_counter()
+                ts = algo._timesteps_total
+                frac = min(1.0, ts / cfg.epsilon_timesteps)
+                want_eps = cfg.epsilon_initial + frac * (
+                    cfg.epsilon_final - cfg.epsilon_initial)
+                r = algo.train()
+                results.append(r)
+                if abs(r["epsilon"] - want_eps) > 1e-6 or abs(float(
+                        runner.params["epsilon"]) - want_eps) > 1e-6:
+                    failures.append(f"{kind} iteration {i + 1}: epsilon "
+                                    f"{r['epsilon']} (runner "
+                                    f"{float(runner.params['epsilon'])}), "
+                                    f"schedule {want_eps}")
+                if all(torch.equal(t, p) for t, p in zip(
+                        tree_leaves(learner._target_params),
+                        tree_leaves(learner.params))):
+                    syncs += 1
+                if not (np.isfinite(r.get("td_loss", np.nan))
+                        and np.isfinite(r.get("mean_q", np.nan))):
+                    failures.append(f"{kind} iteration {i + 1}: td_loss "
+                                    f"{r.get('td_loss')}, mean_q "
+                                    f"{r.get('mean_q')}")
+            wall = time.perf_counter() - t_timed
+            steps = [r["env_steps_this_iter"] for r in results]
+            # The buffer drops the last step of an episode cut by the
+            # 500-step limit (same-step autoreset returns no final
+            # observation): at most one step in 500.
+            dropped = sum(steps) - algo._buffer.size
+            if min(steps) < cfg.train_batch_size or (
+                    results[-1]["timesteps_total"] != sum(steps)
+                    or not 0 <= dropped <= sum(steps)
+                    // CartPoleBatchedEnv.MAX_STEPS):
+                failures.append(f"{kind}: env steps {steps}, counted "
+                                f"{results[-1]['timesteps_total']}, buffer "
+                                f"{algo._buffer.size}")
+            if syncs < 2:
+                failures.append(f"{kind}: target synced after {syncs} "
+                                f"iterations")
+            if all(np.array_equal(a, b) for a, b in zip(
+                    tree_leaves(before), tree_leaves(learner.get_weights()))):
+                failures.append(f"{kind}: the weights did not change")
+            if learner.device.type != "cuda" or runner.device.type != "cuda":
+                failures.append(f"{kind}: learner on {learner.device}, "
+                                f"runner on {runner.device}")
+            buf = algo._buffer
+            if kind == "prioritized":
+                vals = buf._tree.values[:buf.size]
+                if not (isinstance(buf, PrioritizedReplayBuffer)
+                        and vals.min() < buf._max_priority ** buf.alpha):
+                    failures.append("prioritized: no priority moved")
+            batch = buf.sample(cfg.minibatch_size,
+                               np.random.default_rng(SEED + 1))
+            batch.pop("idx", None)
+            update_rel, stored_rel = learner_update_check(
+                learner, lambda dev: DQNLearner(learner.module, cfg,
+                                                device=dev),
+                lambda other: other.update_td(batch),
+                targets="_target_params")
+            if not update_rel <= OFFPOLICY_UPDATE_REL_L2:
+                failures.append(f"{kind}: update_td card vs CPU {update_rel}")
+            busy, top = _device_profile(algo.train)
+            runs.append({
+                "replay": kind, "target_syncs": syncs,
+                "results": [{k: r.get(k) for k in (
+                    "training_iteration", "td_loss", "mean_q", "epsilon",
+                    "buffer_size", "env_steps_this_iter", "grad_norm",
+                    "sample_time_s", "learn_time_s")} for r in results],
+                "update_card_vs_cpu_rel_l2": update_rel,
+                "update_stored_card_vs_cpu_rel_l2": stored_rel,
+                "devices": {"runner": str(runner.device),
+                            "learner": str(learner.device)},
+                **_offpolicy_speed(results[RL_WARM_ITERS:], wall, busy,
+                                   cfg.num_td_updates_per_iter, device),
+                "top_kernels_ms": top[:6]})
+        finally:
+            algo.stop()
+    emit("dqn_train", ok=not failures, failures=failures,
+         module="DQNModule (MLP 64-64)", env="CartPoleBatchedEnv",
+         num_envs=RL_ENVS, train_batch=cfg.train_batch_size,
+         minibatch=cfg.minibatch_size,
+         td_updates_per_iter=cfg.num_td_updates_per_iter,
+         update_tol=OFFPOLICY_UPDATE_REL_L2, runs=runs)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_sac_train(device):
+    """SAC with SACConfig's defaults on PendulumBatchedEnv(16) through the
+    runner's episode path (next-step autoreset). Returns the replay
+    buffer's transition columns (offline_train's CQL corpus)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.sac import SACConfig, SACLearner
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = (SACConfig()
+           .environment(env_creator=batched_creator(PendulumBatchedEnv))
+           .env_runners(num_envs_per_env_runner=RL_ENVS)
+           .debugging(seed=SEED))
+    algo = cfg.build()
+    failures = []
+    try:
+        learner = algo.learner_group.learner
+        runner = algo.env_runner_group.local_runner
+        before = learner.get_weights()
+        targets_before = [t.clone() for t in
+                          tree_leaves(learner._target_q)]
+        results, t_timed = [], None
+        for i in range(RL_WARM_ITERS + RL_TIMED_ITERS):
+            if i == RL_WARM_ITERS:
+                t_timed = time.perf_counter()
+            results.append(algo.train())
+        wall = time.perf_counter() - t_timed
+        for r in results:
+            if not all(np.isfinite(r.get(k, np.nan)) for k in (
+                    "critic_loss", "actor_loss", "alpha_loss", "alpha")):
+                failures.append(f"iteration {r['training_iteration']}: "
+                                f"losses {r}")
+        if results[-1]["alpha"] == 1.0:
+            failures.append("alpha did not move")
+        after = learner.get_weights()
+        if all(np.array_equal(a, b) for a, b in zip(tree_leaves(before),
+                                                     tree_leaves(after))):
+            failures.append("the weights did not change")
+        targets = tree_leaves(learner._target_q)
+        params = tree_leaves({k: learner.params[k] for k in ("q1", "q2")})
+        if (all(torch.equal(t, b) for t, b in zip(targets, targets_before))
+                or any(torch.equal(t, p) for t, p in zip(targets, params))):
+            failures.append("targets not moved by polyak (unchanged, or "
+                            "copied)")
+        buf = algo._buffer
+        acts = buf.actions[:buf.size]
+        if not (np.abs(acts) <= PendulumBatchedEnv.MAX_TORQUE).all():
+            failures.append(f"actions outside the Box: {np.abs(acts).max()}")
+        steps = [r["env_steps_this_iter"] for r in results]
+        if min(steps) < cfg.train_batch_size or buf.size != sum(steps):
+            failures.append(f"env steps {steps}, buffer {buf.size}")
+        if learner.device.type != "cuda" or runner.device.type != "cuda":
+            failures.append(f"learner on {learner.device}, runner on "
+                            f"{runner.device}")
+        batch = buf.sample(cfg.minibatch_size,
+                           np.random.default_rng(SEED + 1))
+        rng = np.random.default_rng(SEED + 2)
+        noise = {k: rng.standard_normal(
+            (cfg.minibatch_size, 1)).astype(np.float32)
+            for k in ("next", "pi")}
+        update_rel, stored_rel = learner_update_check(
+            learner, lambda dev: SACLearner(learner.module, cfg, device=dev),
+            lambda other: other.update_sac(batch, noise=noise),
+            targets="_target_q")
+        if not update_rel <= OFFPOLICY_UPDATE_REL_L2:
+            failures.append(f"update_sac card vs CPU {update_rel}")
+        busy, top = _device_profile(algo.train)
+        columns = {k: getattr(buf, k)[:buf.size].copy() for k in (
+            "obs", "actions", "rewards", "next_obs", "dones")}
+        emit("sac_train", ok=not failures, failures=failures,
+             module="SACModule (actor, twin Q 256-256)",
+             env="PendulumBatchedEnv (Pendulum-v1 dynamics, 200 steps)",
+             num_envs=RL_ENVS, train_batch=cfg.train_batch_size,
+             minibatch=cfg.minibatch_size,
+             updates_per_iter=cfg.num_updates_per_iter,
+             devices={"runner": str(runner.device),
+                      "learner": str(learner.device)},
+             results=[{k: r.get(k) for k in (
+                 "training_iteration", "critic_loss", "actor_loss",
+                 "alpha_loss", "alpha", "entropy", "mean_q",
+                 "episode_return_mean", "env_steps_this_iter", "grad_norm",
+                 "sample_time_s", "learn_time_s")} for r in results],
+             update_card_vs_cpu_rel_l2=update_rel,
+             update_stored_card_vs_cpu_rel_l2=stored_rel,
+             update_tol=OFFPOLICY_UPDATE_REL_L2,
+             **_offpolicy_speed(results[RL_WARM_ITERS:], wall, busy,
+                                cfg.num_updates_per_iter, device),
+             top_kernels_ms=top[:6])
+    finally:
+        algo.stop()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return columns
+
+
+def phase_offline_train(device, sac_columns):
+    """CQL on the SAC run's transitions, then BC and MARWIL on CartPole
+    fragments, each through ``write_*`` and its ``offline_data`` path on
+    the card: 2 iterations each."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+    from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+    from ray_tpu_torch.rllib.offline import (BCConfig, CQLConfig,
+                                             MARWILConfig, write_fragments,
+                                             write_transitions)
+    from ray_tpu_torch.rllib.offline.bc import BCLearner
+    from ray_tpu_torch.rllib.offline.cql import CQLLearner
+    from ray_tpu_torch.rllib.offline.io import (iter_offline_batches,
+                                                load_columns)
+    from ray_tpu_torch.rllib.offline.marwil import (MARWILLearner,
+                                                    monte_carlo_returns)
+
+    failures, rows = [], []
+    cartpole = batched_creator(CartPoleBatchedEnv)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_transitions(sac_columns, f"{tmp}/cql")
+        runner = SingleAgentEnvRunner(cartpole, lambda: MLPModule(4, 2),
+                                      num_envs=RL_ENVS, seed=SEED,
+                                      device=device)
+        runner.set_weights(MLPModule(4, 2).init(
+            torch.Generator().manual_seed(SEED)))
+        write_fragments([runner.sample_fragment(OFFLINE_FRAGMENT)
+                         for _ in range(2)], f"{tmp}/frags")
+        runner.stop()
+        frags = load_columns(f"{tmp}/frags")
+        frags["returns"] = monte_carlo_returns(frags["rewards"],
+                                               frags["dones"], 0.99)
+        first = next(iter_offline_batches(frags, 128, seed=SEED))
+        rng = np.random.default_rng(SEED + 3)
+        B, N = 128, CQLConfig().cql_n_actions
+        cql_noise = {"next": rng.standard_normal((B, 1)),
+                     "pi": rng.standard_normal((B, 1)),
+                     "cql_unif": rng.uniform(-1, 1, (B * N, 1)),
+                     "cql_pi": rng.standard_normal((B * N, 1))}
+        cql_noise = {k: v.astype(np.float32) for k, v in cql_noise.items()}
+        cql_batch = next(iter_offline_batches(sac_columns, B, seed=SEED))
+        specs = [
+            ("cql", CQLConfig().environment(
+                env_creator=batched_creator(PendulumBatchedEnv)),
+             f"{tmp}/cql", ("critic_loss", "actor_loss", "alpha_loss",
+                            "cql_penalty"),
+             lambda cfg, m, dev: CQLLearner(m, cfg, device=dev),
+             lambda other: other.update_sac(cql_batch, noise=cql_noise),
+             "_target_q"),
+            ("bc", BCConfig().environment(env_creator=cartpole),
+             f"{tmp}/frags", ("bc_nll", "entropy"),
+             lambda cfg, m, dev: BCLearner(m, lr=cfg.lr,
+                                           grad_clip=cfg.grad_clip,
+                                           device=dev),
+             lambda other: other.update(
+                 {k: first[k] for k in ("obs", "actions")}, shuffle=False),
+             None),
+            ("marwil", MARWILConfig().environment(env_creator=cartpole),
+             f"{tmp}/frags", ("marwil_loss", "policy_loss", "vf_loss"),
+             lambda cfg, m, dev: MARWILLearner(
+                 m, beta=cfg.beta, vf_coeff=cfg.vf_coeff,
+                 max_weight=cfg.max_weight, lr=cfg.lr,
+                 grad_clip=cfg.grad_clip, device=dev),
+             lambda other: other.update(
+                 {k: first[k] for k in ("obs", "actions", "returns")},
+                 shuffle=False),
+             None),
+        ]
+        for name, cfg, path, keys, make, call, targets in specs:
+            cfg = cfg.offline_data(input_path=path).debugging(seed=SEED)
+            algo = cfg.build()
+            try:
+                learner = algo.learner_group.learner
+                before = learner.get_weights()
+                t0 = time.perf_counter()
+                results = [algo.train() for _ in range(OFFLINE_ITERS)]
+                wall = time.perf_counter() - t0
+                for r in results:
+                    if not all(np.isfinite(r.get(k, np.nan)) for k in keys):
+                        failures.append(f"{name}: losses {r}")
+                    if (r["env_steps_this_iter"] != 0
+                            or r["sgd_steps_this_iter"]
+                            != cfg.steps_per_iteration):
+                        failures.append(f"{name}: steps {r}")
+                if all(np.array_equal(a, b) for a, b in zip(
+                        tree_leaves(before),
+                        tree_leaves(learner.get_weights()))):
+                    failures.append(f"{name}: the weights did not change")
+                if learner.device.type != "cuda":
+                    failures.append(f"{name}: learner on {learner.device}")
+                update_rel, stored_rel = learner_update_check(
+                    learner, lambda dev: make(cfg, learner.module, dev),
+                    call, targets=targets)
+                if not update_rel <= OFFPOLICY_UPDATE_REL_L2:
+                    failures.append(f"{name}: update card vs CPU "
+                                    f"{update_rel}")
+                sgd = sum(r["sgd_steps_this_iter"] for r in results)
+                rows.append({"algo": name, "rows": len(
+                    algo._offline_columns["actions"]),
+                    "minibatch": cfg.minibatch_size,
+                    "results": [{k: r.get(k) for k in keys + (
+                        "sgd_steps_this_iter", "env_steps_this_iter",
+                        "grad_norm")} for r in results],
+                    "sgd_steps_per_s": sgd / wall,
+                    "ms_per_sgd_step": wall * 1e3 / sgd,
+                    "learner": str(learner.device),
+                    "update_card_vs_cpu_rel_l2": update_rel,
+                    "update_stored_card_vs_cpu_rel_l2": stored_rel})
+            finally:
+                algo.stop()
+    emit("offline_train", ok=not failures, failures=failures,
+         update_tol=OFFPOLICY_UPDATE_REL_L2, runs=rows)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_multi_agent_train(device):
+    """PPO's shared policy on MultiAgentBatchedEnv over TwoAgentEnv: every
+    live column's steps counted, the dead ones masked."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.env.multi_agent_env import (
+        make_multi_agent_creator)
+
+    cols = MA_INSTANCES * len(TwoAgentEnv.possible_agents)
+    algo = (PPOConfig()
+            .environment(env_creator=make_multi_agent_creator(
+                TwoAgentEnv, seed=SEED))
+            .env_runners(num_envs_per_env_runner=cols,
+                         rollout_fragment_length=MA_FRAGMENT)
+            .debugging(seed=SEED).build())
+    failures = []
+    try:
+        learner = algo.learner_group.learner
+        runner = algo.env_runner_group.local_runner
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(MA_ITERS)]
+        wall = time.perf_counter() - t0
+        # Agent "a" lives every step; "b" the first B_TRUNCATES of each
+        # EPISODE (fragments start on episode boundaries).
+        live = MA_INSTANCES * (MA_FRAGMENT + MA_FRAGMENT
+                               * TwoAgentEnv.B_TRUNCATES
+                               // TwoAgentEnv.EPISODE)
+        for r in results:
+            if r["env_steps_this_iter"] != live:
+                failures.append(f"iteration {r['training_iteration']}: "
+                                f"{r['env_steps_this_iter']} live steps, "
+                                f"not {live}")
+            if not (np.isfinite(r["total_loss"]) and r["grad_norm"] > 0):
+                failures.append(f"iteration {r['training_iteration']}: "
+                                f"loss {r['total_loss']}")
+        if results[-1]["timesteps_total"] != live * MA_ITERS:
+            failures.append(f"{results[-1]['timesteps_total']} steps "
+                            f"counted, not {live * MA_ITERS}")
+        if runner.num_envs != cols or learner.device.type != "cuda" or (
+                runner.device.type != "cuda"):
+            failures.append(f"{runner.num_envs} columns; learner on "
+                            f"{learner.device}, runner on {runner.device}")
+        emit("multi_agent_train", ok=not failures, failures=failures,
+             env="MultiAgentBatchedEnv(TwoAgentEnv)", instances=MA_INSTANCES,
+             columns=cols, fragment=MA_FRAGMENT, live_steps_per_iter=live,
+             masked_steps_per_iter=cols * MA_FRAGMENT - live,
+             results=[{k: r[k] for k in (
+                 "training_iteration", "total_loss", "policy_loss",
+                 "vf_loss", "grad_norm", "env_steps_this_iter",
+                 "episode_return_mean", "sample_time_s", "learn_time_s")}
+                 for r in results],
+             env_steps_per_s=live * MA_ITERS / wall,
+             devices={"runner": str(runner.device),
+                      "learner": str(learner.device)})
+    finally:
+        algo.stop()
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def bwd_flops(B, S, H, D, causal, products):
@@ -2094,6 +2807,11 @@ def main() -> int:
     vit_launches = phase_vit_infer(fa, device)
     gc_collect()
     phase_ppo_train(device)
+    gc_collect()
+    phase_dqn_train(device)
+    sac_columns = phase_sac_train(device)
+    phase_offline_train(device, sac_columns)
+    phase_multi_agent_train(device)
     gc_collect()
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 

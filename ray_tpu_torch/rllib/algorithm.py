@@ -17,7 +17,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +28,22 @@ from .spaces import Box
 
 TRAINING_ITERATION = "training_iteration"
 _METADATA = ".tune_metadata.pkl"
+
+
+def env_spaces(creator: Callable[..., Any]) -> Tuple[Any, Any]:
+    """(observation space, action space) of one env from ``creator``.
+    Batched-env factories (vector_env.BatchedEnv protocol) take a column
+    count and expose single_* spaces; plain creators build one gym env."""
+    batched = getattr(creator, "makes_batched_env", False)
+    env = creator(1) if batched else creator()
+    try:
+        # Space access inside try: a space property that raises must not
+        # leak the constructed env.
+        if batched:
+            return env.single_observation_space, env.single_action_space
+        return env.observation_space, env.action_space
+    finally:
+        env.close()
 
 
 class Algorithm:
@@ -93,29 +109,13 @@ class Algorithm:
         def factory():
             from .core.catalog import module_for_space
 
-            # Batched-env factories (vector_env.BatchedEnv protocol) take a
-            # column count and expose single_* spaces; plain creators build
-            # one gym env.
-            batched = getattr(creator, "makes_batched_env", False)
-            env = creator(1) if batched else creator()
-            try:
-                # Space access inside try: a space property that raises
-                # must not leak the constructed env.
-                if batched:
-                    obs_space = env.single_observation_space
-                    action_space = env.single_action_space
-                else:
-                    obs_space = env.observation_space
-                    action_space = env.action_space
-                if connector_factory is not None:
-                    # The module sees connector OUTPUT shapes.
-                    shape = tuple(
-                        connector_factory().output_shape(obs_space.shape))
-                    obs_space = Box(-np.inf, np.inf, shape, np.float32)
-                return module_for_space(obs_space, action_space,
-                                        model_config)
-            finally:
-                env.close()
+            obs_space, action_space = env_spaces(creator)
+            if connector_factory is not None:
+                # The module sees connector OUTPUT shapes.
+                shape = tuple(
+                    connector_factory().output_shape(obs_space.shape))
+                obs_space = Box(-np.inf, np.inf, shape, np.float32)
+            return module_for_space(obs_space, action_space, model_config)
 
         return factory
 

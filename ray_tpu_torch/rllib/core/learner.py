@@ -25,7 +25,9 @@ Algorithms subclass and implement ``loss(params, batch, generator)``.
   losses divide their masked sums by the global mask sum
   (:meth:`mask_sum`), as the reference's global mean does, so the summed
   gradient is the global batch's; the losses and metrics, all such
-  quotients, are summed the same way.
+  quotients, are summed the same way, except ``replicated_metrics``
+  (values every rank holds whole, such as SAC's alpha). Per-row metrics
+  come back whole from :meth:`take_td_errors`.
 """
 from __future__ import annotations
 
@@ -64,6 +66,16 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def mean_metrics(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """The mean of each metric over the steps, as floats: one host sync."""
+    if not steps:
+        return {}
+    keys = list(steps[0])
+    table = torch.stack([torch.stack([m[k].detach().float() for k in keys])
+                         for m in steps])
+    return dict(zip(keys, table.double().mean(0).tolist()))
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy (never a view of a CPU tensor that later updates
     change in place)."""
@@ -71,6 +83,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class TorchLearner:
+    # Metrics the loss returns per row (DQN's and SAC's |TD error|, the
+    # prioritized buffer's signal): taken out of the metrics before their
+    # reduction to one value each, and kept on the device in
+    # ``self.last_rows`` until the algorithm asks for them.
+    per_row_metrics: Tuple[str, ...] = ()
+    # Metrics every rank of a mesh computes whole (not a quotient of a
+    # masked sum): reported as they are, not summed over the ranks.
+    replicated_metrics: Tuple[str, ...] = ()
+
     def __init__(
         self,
         module: RLModule,
@@ -102,6 +123,7 @@ class TorchLearner:
             self._leaves, lr=lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
         self._rng = np.random.default_rng(seed)
         self._generator = torch.Generator(self.device).manual_seed(seed)
+        self.last_rows: Dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------------ loss
 
@@ -111,30 +133,42 @@ class TorchLearner:
         """Return (scalar loss, metrics). Implemented by the algorithm."""
         raise NotImplementedError
 
-    def mask_sum(self, mask: torch.Tensor) -> torch.Tensor:
-        """The mask's sum over the whole minibatch (every rank's rows on a
-        mesh), at least 1: what the losses' masked means divide by."""
-        total = mask.sum()
+    def global_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` (a tensor that needs no gradient) over the
+        whole minibatch: every rank's rows on a mesh."""
+        total = x.sum()
         for axis in self._batch_axes:
             dist.all_reduce(total, group=self.mesh.get_group(axis))
-        return total.clamp_min(1.0)
+        return total
+
+    def mask_sum(self, mask: torch.Tensor) -> torch.Tensor:
+        """The mask's sum over the whole minibatch, at least 1: what the
+        losses' masked means divide by. ``mask_sum(torch.ones_like(x))``
+        is the minibatch's row count, for a plain mean."""
+        return self.global_sum(mask).clamp_min(1.0)
 
     # ---------------------------------------------------------------- update
 
-    def _step(self, batch: Dict[str, torch.Tensor]
+    def _step(self, batch: Dict[str, torch.Tensor], **loss_kw
               ) -> Dict[str, torch.Tensor]:
+        """One update; ``loss_kw`` go to the loss (SAC's given noise)."""
         self.optimizer.zero_grad(set_to_none=True)
         # TF32 off for the convolutions' gradients too (the forward's
         # flags do not reach the backward).
         with catalog.f32_convs():
-            loss, metrics = self.loss(self.params, batch, self._generator)
+            loss, metrics = self.loss(self.params, batch, self._generator,
+                                      **loss_kw)
             loss.backward()
-        metrics = {**metrics, "total_loss": loss}
+        metrics = dict(metrics)
+        self.last_rows = {k: metrics.pop(k).detach()
+                          for k in self.per_row_metrics}
+        metrics["total_loss"] = loss
         for p in self._leaves:
             if p.grad is None:  # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self._leaves]
-        values = [m.detach().reshape(1) for m in metrics.values()]
+        summed = [k for k in metrics if k not in self.replicated_metrics]
+        values = [metrics[k].detach().reshape(1) for k in summed]
         if self._batch_axes:
             # One buffer a minibatch: the gradients and the metrics.
             flat = torch.cat([g.reshape(-1) for g in grads] + values)
@@ -152,9 +186,15 @@ class TorchLearner:
                                 self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
         self.optimizer.step()
-        out = dict(zip(metrics, (v[0] for v in values)))
+        out = {k: metrics[k].detach() for k in self.replicated_metrics}
+        out.update(zip(summed, (v[0] for v in values)))
         out["grad_norm"] = norm
         return out
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.as_tensor(np.asarray(v))).to(self.device)
+                for k, v in batch.items()}
 
     def _local_rows(self, rows: np.ndarray) -> np.ndarray:
         """This rank's rows of a minibatch: its slice along the batch axes,
@@ -167,6 +207,36 @@ class TorchLearner:
         per = len(rows) // self._n_shards
         c = axis_coord(self.mesh, self._batch_axes)
         return rows[c * per:(c + 1) * per]
+
+    def _local_batch(self, batch: Dict[str, Any], n: int
+                     ) -> Dict[str, Any]:
+        """This rank's rows of every column of an ``n``-row minibatch: a
+        column of ``k * n`` rows (CQL's proposals, ``k`` a row) gives the
+        ``k``-row blocks of those rows."""
+        if not self._batch_axes:
+            return batch
+        rows = self._local_rows(np.arange(n))
+        lo, hi = int(rows[0]), int(rows[-1]) + 1
+        return {key: v[lo * (len(v) // n):hi * (len(v) // n)]
+                for key, v in batch.items()}
+
+    def take_td_errors(self) -> np.ndarray:
+        """|TD errors| of the last update's minibatch, every rank's rows in
+        the minibatch's order (the prioritized buffer's signal); empty
+        before the first update. One host copy."""
+        td = self.last_rows.get("td_abs")
+        if td is None:
+            return np.zeros(0, np.float32)
+        if self._batch_axes:
+            # Each rank's rows in their place, zeros elsewhere, summed.
+            n = td.numel()
+            c = axis_coord(self.mesh, self._batch_axes)
+            whole = td.new_zeros(n * self._n_shards)
+            whole[c * n:(c + 1) * n] = td
+            for axis in self._batch_axes:
+                dist.all_reduce(whole, group=self.mesh.get_group(axis))
+            td = whole
+        return td.cpu().numpy()
 
     def update(
         self,
@@ -185,8 +255,7 @@ class TorchLearner:
         rng_np = np.random.default_rng(int(self._rng.integers(2**31 - 1)))
         # The whole batch goes to the device once (pixels as uint8); the
         # minibatches are gathered there.
-        on_device = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                     for k, v in batch.items()}
+        on_device = self._to_device(batch)
         all_metrics: list = []
         for _ in range(num_epochs):
             idx = rng_np.permutation(n) if shuffle else np.arange(n)
@@ -196,14 +265,7 @@ class TorchLearner:
                 sub = {k: v.index_select(0, rows)
                        for k, v in on_device.items()}
                 all_metrics.append(self._step(sub))
-        if not all_metrics:
-            return {}
-        keys = list(all_metrics[0])
-        table = torch.stack([torch.stack([m[k].detach().float()
-                                          for k in keys])
-                             for m in all_metrics])
-        # One host sync a call.
-        return dict(zip(keys, table.double().mean(0).tolist()))
+        return mean_metrics(all_metrics)
 
     # ----------------------------------------------------------- state/ckpt
 

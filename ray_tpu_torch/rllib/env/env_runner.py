@@ -55,7 +55,7 @@ class SingleAgentEnvRunner:
         else:
             self.batched = GymVecEnv(env_creator, num_envs,
                                      mode=vectorize_mode)
-            self.envs = self.batched.envs  # legacy episode-based sampler
+            self.envs = self.batched.envs  # greedy evaluation's env_fns
         self.num_envs = num_envs
         self.module = module_factory()
         self.params = None
@@ -117,12 +117,21 @@ class SingleAgentEnvRunner:
     @torch.no_grad()
     def _explore(self, obs: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(actions, logp, values) of the policy on ``obs``, as numpy."""
+        """(actions, logp, values) of the policy on ``obs``, as numpy; the
+        actions in the module's dtype and shape ([N] discrete, [N, A] for
+        a Box). One copy to the host: the three side by side in one f32
+        buffer, which holds f32 actions and integer ones below 2**24
+        exactly."""
         actions, logp, vf = self.module.forward_exploration(
             self.params, self._to_device(obs), self._generator)
-        out = torch.stack([actions.float(), logp.float(), vf.float()])
-        out = out.cpu().numpy()
-        return out[0].astype(np.int64), out[1], out[2]
+        n = actions.shape[0]
+        out = torch.cat([actions.reshape(n, -1).float(),
+                         logp.float().reshape(n, 1),
+                         vf.float().reshape(n, 1)], dim=1).cpu().numpy()
+        k = out.shape[1] - 2
+        dtype = torch.empty(0, dtype=actions.dtype).numpy().dtype
+        act = out[:, :k].reshape(actions.shape).astype(dtype)
+        return act, out[:, k], out[:, k + 1]
 
     @torch.no_grad()
     def _values(self, obs: np.ndarray) -> np.ndarray:
@@ -133,6 +142,28 @@ class SingleAgentEnvRunner:
         return "ok"
 
     # ---------------------------------------------------------------- sample
+
+    def _fragment_buffers(self, T: int, actions: np.ndarray
+                          ) -> Dict[str, np.ndarray]:
+        """The reusable [T, N] buffers; the actions' in the dtype and
+        shape of the module's first actions."""
+        bufs = self._frag_buffers
+        if (bufs is None or bufs["actions"].shape[0] != T
+                or bufs["actions"].shape[2:] != actions.shape[1:]
+                or bufs["actions"].dtype != actions.dtype):
+            N = self.num_envs
+            bufs = self._frag_buffers = {
+                "obs": np.empty((T, N, *self._obs.shape[1:]),
+                                self._obs.dtype),
+                "actions": np.empty((T, *actions.shape), actions.dtype),
+                "logp": np.empty((T, N), np.float32),
+                "vf": np.empty((T, N), np.float32),
+                "rewards": np.empty((T, N), np.float32),
+                "dones": np.empty((T, N), bool),
+                "truncs": np.empty((T, N), bool),
+                "valid": np.empty((T, N), np.float32),
+            }
+        return bufs
 
     def sample_fragment(self, num_steps: int) -> Dict[str, Any]:
         """Fixed-length rollout fragment: [T, N] arrays, zero per-env
@@ -145,19 +176,6 @@ class SingleAgentEnvRunner:
         """
         assert self.params is not None, "set_weights before sample"
         T, N = num_steps, self.num_envs
-        bufs = self._frag_buffers
-        if bufs is None or bufs["actions"].shape[0] != T:
-            obs_shape = self._obs.shape[1:]
-            bufs = self._frag_buffers = {
-                "obs": np.empty((T, N, *obs_shape), self._obs.dtype),
-                "actions": np.empty((T, N), np.int64),
-                "logp": np.empty((T, N), np.float32),
-                "vf": np.empty((T, N), np.float32),
-                "rewards": np.empty((T, N), np.float32),
-                "dones": np.empty((T, N), bool),
-                "truncs": np.empty((T, N), bool),
-                "valid": np.empty((T, N), np.float32),
-            }
         next_step_mode = self.batched.autoreset_mode == "next_step"
         # Multi-agent batched envs expose dead columns (agents done before
         # their instance's episode): their rows are masked like autoreset
@@ -165,6 +183,8 @@ class SingleAgentEnvRunner:
         dead_fn = getattr(self.batched, "dead_mask", None)
         for t in range(T):
             actions, logp, vf = self._explore(self._obs)
+            if t == 0:
+                bufs = self._fragment_buffers(T, actions)
             bufs["obs"][t] = self._obs
             bufs["actions"][t] = actions
             bufs["logp"][t] = logp
@@ -218,29 +238,46 @@ class SingleAgentEnvRunner:
     def sample(self, num_timesteps: int) -> List[SingleAgentEpisode]:
         """Step the vector env ~num_timesteps (per runner, across its envs);
         returns episode CHUNKS (done or truncated-by-horizon or cut at the
-        end of the rollout, with bootstrap values for the cut ones)."""
+        end of the rollout, with bootstrap values for the cut ones).
+
+        Walks a gymnasium vector env or a native BatchedEnv alike, by its
+        ``autoreset_mode``. "next_step": the done step returns the final
+        observation, and the next step (its action ignored) the reset one,
+        which starts the next chunk. "same_step": the done step already
+        returns the next episode's first observation, so a done chunk ends
+        without its final observation (the env gives none) and a truncated
+        one without a bootstrap value; a replay buffer keeps the last step
+        of a terminated one and drops that of a truncated one
+        (``add_episodes``). Dead columns of a multi-agent env record
+        nothing until their instance resets."""
         assert self.params is not None, "set_weights before sample"
-        if self.envs is None:
-            raise RuntimeError(
-                "episode-based sample() requires a gym env; this runner "
-                "wraps a native BatchedEnv — use sample_fragment()")
+        next_step_mode = self.batched.autoreset_mode == "next_step"
+        dead_fn = getattr(self.batched, "dead_mask", None)
         out: List[SingleAgentEpisode] = []
         steps = 0
         while steps < num_timesteps:
             actions, logp, vf = self._explore(self._obs)
+            skip = self._needs_reset.copy()
+            if dead_fn is not None:
+                skip |= dead_fn()
             env_actions = (self.action_connector(actions)
                            if self.action_connector is not None else actions)
-            raw_next, rewards, terms, truncs, _ = self.envs.step(env_actions)
+            raw_next, rewards, terms, truncs = self.batched.step(env_actions)
+            finished = (terms | truncs) & ~skip
+            if not next_step_mode:
+                # The returned obs already starts the next episode: the
+                # pipelines restart before it passes through them.
+                for i in np.nonzero(finished)[0]:
+                    self._reset_pipelines(int(i))
             next_obs = self._connect(raw_next)
             vf_next: Optional[np.ndarray] = None  # lazy V(next_obs)
             for i in range(self.num_envs):
-                if self._needs_reset[i]:
-                    # Autoreset step: the env ignored our action and returned
-                    # the reset observation — start the new episode here.
+                if skip[i]:
+                    # Autoreset step (the env ignored our action and
+                    # returned the reset observation) or a dead column:
+                    # no transition; the next chunk starts here.
                     self._needs_reset[i] = False
-                    fresh = SingleAgentEpisode()
-                    fresh.observations.append(next_obs[i].copy())
-                    self._episodes[i] = fresh
+                    self._episodes[i] = self._fresh(next_obs[i])
                     continue
                 ep = self._episodes[i]
                 ep.actions.append(actions[i])
@@ -248,23 +285,26 @@ class SingleAgentEnvRunner:
                 ep.logp.append(float(logp[i]))
                 ep.vf_preds.append(float(vf[i]))
                 steps += 1
-                if terms[i] or truncs[i]:
-                    ep.terminated = bool(terms[i])
-                    ep.truncated = bool(truncs[i])
-                    # NEXT_STEP autoreset: next_obs[i] IS the final obs.
+                if not finished[i]:
                     ep.observations.append(next_obs[i].copy())
-                    if truncs[i] and not terms[i]:
-                        if vf_next is None:
-                            vf_next = self._values(next_obs)
-                        ep.bootstrap_value = float(vf_next[i])
-                    out.append(ep)
-                    self._episodes[i] = SingleAgentEpisode()
-                    self._needs_reset[i] = True
-                    # Stateful connectors (frame stacks) restart with the
-                    # new episode.
-                    self._reset_pipelines(i)
-                else:
-                    ep.observations.append(next_obs[i].copy())
+                    continue
+                ep.terminated = bool(terms[i])
+                ep.truncated = bool(truncs[i])
+                out.append(ep)
+                if not next_step_mode:
+                    self._episodes[i] = self._fresh(next_obs[i])
+                    continue
+                # NEXT_STEP autoreset: next_obs[i] IS the final obs.
+                ep.observations.append(next_obs[i].copy())
+                if truncs[i] and not terms[i]:
+                    if vf_next is None:
+                        vf_next = self._values(next_obs)
+                    ep.bootstrap_value = float(vf_next[i])
+                self._episodes[i] = SingleAgentEpisode()
+                self._needs_reset[i] = True
+                # Stateful connectors (frame stacks) restart with the
+                # new episode.
+                self._reset_pipelines(i)
             self._obs = next_obs
         # Cut the in-flight episodes: hand them out with a bootstrap value
         # and start fresh chunks that continue from the same env state.
@@ -276,10 +316,14 @@ class SingleAgentEnvRunner:
                 ep = self._episodes[i]
                 ep.bootstrap_value = float(vf_last[i])
                 out.append(ep)
-                cont = SingleAgentEpisode()
-                cont.observations.append(self._obs[i].copy())
-                self._episodes[i] = cont
+                self._episodes[i] = self._fresh(self._obs[i])
         return out
+
+    @staticmethod
+    def _fresh(obs: np.ndarray) -> SingleAgentEpisode:
+        ep = SingleAgentEpisode()
+        ep.observations.append(obs.copy())
+        return ep
 
     def sample_episode_greedy(self, max_steps: int = 10_000) -> float:
         """One full greedy-policy episode on a fresh env; returns its return

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["gymnasium"] = None    # and `import gymnasium`
+sys.modules["ray_tpu"] = None      # and any module of the JAX package
 sys.path.insert(0, {repo!r})
 import ray_tpu_torch
 names = ["ray_tpu_torch"]
@@ -26,10 +28,10 @@ for info in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     names.append(info.name)
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules
-                if m == "ray_tpu" or m.startswith("ray_tpu.")
-                or m == "jax" and sys.modules[m] is not None
-                or m.startswith("jax."))
+                if m in ("ray_tpu", "jax") and sys.modules[m] is not None
+                or m.startswith(("ray_tpu.", "jax.")))
 print("IMPORTED", len(names))
+print("NAMES", " ".join(names))
 print("LEAKED", leaked)
 """
 
@@ -40,11 +42,17 @@ def test_package_imports_without_jax_or_ray_tpu():
         capture_output=True, text=True, timeout=120, cwd=str(REPO))
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
-                 if line.startswith(("IMPORTED", "LEAKED")))
+                 if line.startswith(("IMPORTED", "LEAKED", "NAMES")))
     # ops.flash_attention, models.generate, serve.llm_engine, convert,
     # models.vit, rllib.* ... and chip_smoke.py
     assert int(lines["IMPORTED"]) >= 30
     assert lines["LEAKED"] == "[]"
+    rl = "ray_tpu_torch.rllib."
+    assert {rl + m for m in (
+        "utils.replay_buffers", "algorithms.dqn", "algorithms.sac",
+        "offline", "offline.io", "offline.bc", "offline.cql",
+        "offline.marwil", "env.multi_agent_env")} <= set(
+            lines["NAMES"].split())
 
 
 def test_sources_name_no_jax_or_ray_tpu():
@@ -108,3 +116,45 @@ def test_vit_and_rl_entry_points_raise_when_cuda_is_absent(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
         make(device="cpu")
+
+
+def test_offpolicy_offline_and_multi_agent_entry_points_raise_without_cuda(
+        monkeypatch):
+    """DQN, SAC, CQL, BC and MARWIL (their configs' build and learners)
+    and PPO over a MultiAgentBatchedEnv: the card unless the caller asks
+    for the CPU."""
+    import chip_smoke
+    from ray_tpu_torch.rllib.algorithms.dqn import (DQNConfig, DQNLearner,
+                                                    DQNModule)
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.algorithms.sac import (SACConfig, SACLearner,
+                                                    SACModule)
+    from ray_tpu_torch.rllib.env.multi_agent_env import (
+        make_multi_agent_creator)
+    from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+    from ray_tpu_torch.rllib.offline import BCConfig, CQLConfig, MARWILConfig
+
+    cartpole = chip_smoke.batched_creator(CartPoleBatchedEnv)
+    pendulum = chip_smoke.batched_creator(chip_smoke.PendulumBatchedEnv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def build(cfg, creator):
+        return lambda **kw: cfg().environment(env_creator=creator).resources(
+            **kw).build()
+
+    cases = [
+        build(DQNConfig, cartpole), build(SACConfig, pendulum),
+        build(CQLConfig, pendulum), build(BCConfig, cartpole),
+        build(MARWILConfig, cartpole),
+        build(PPOConfig, make_multi_agent_creator(chip_smoke.TwoAgentEnv)),
+        lambda **kw: DQNLearner(DQNModule(4, 2), DQNConfig(), **kw),
+        lambda **kw: SACLearner(SACModule(3, 1, np.full(1, -2.0),
+                                          np.full(1, 2.0), (8, 8)),
+                                SACConfig(), **kw),
+    ]
+    for make in cases:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        made = make(device="cpu")
+        if hasattr(made, "stop"):
+            made.stop()
