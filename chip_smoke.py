@@ -128,7 +128,30 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    or SGD steps/s; DQN and SAC also updates/s, ms an update, the
    sampling/learning split, one profiled iteration's idle share and peak
    memory.
-10. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+10. ``train_glue``: the Train layer on the port's own worker processes
+   (``ray_tpu_torch.train``). BASELINE config 1, the MNIST DP smoke:
+   ``DataParallelTrainer`` with the host backend, 2 CPU workers on gloo,
+   running the JAX package's tests/test_train.py loop (defined here), 5
+   steps (final step 4, loss under 2.5), and beside it the same loop with
+   a failure injected at step 3 and one restart allowed (it resumes from
+   rank 0's checkpoint: final step 5, checkpoint step 6). BASELINE config
+   2: GPT-2 125M (``gpt2_125m(remat=True, remat_policy="dots")``, full
+   width and depth, f32 params, bf16 compute) through ``TorchTrainer``,
+   one spawned worker a visible card up to 4, NCCL, ``RULES_DP`` on the
+   backend's mesh, 8 x 512 tokens a card from one seeded batch, 2 warm-up
+   and 10 timed steps, each loss sent back by ``train.report``. Checks
+   finite, falling losses, the first within 0.5 of ln(50257); every rank
+   24/12/12 K1/K2/K3 launches a step; all 12 losses bit for bit those
+   of the same data=W step on the same seed and batch with no Train layer
+   (``glue_dp_rank``: in this process on one card, on W spawned ranks on
+   more), which isolates the glue; the losses equal to the same steps run
+   with the one-device step in this process (one card; on more, the first
+   five within 1e-3 relative: GLUE_LOSS_RTOL); the state every rank saves
+   with ``save_sharded`` read back whole here by ``load_sharded()``, its
+   leaf sums the workers'; and no worker process left. Prints each fit's
+   wall and spawn seconds, the worker's step ms beside the direct step's
+   and the witness's, tokens/s a card and peak memory a rank.
+11. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: device time on contiguous copies, each backend that takes
@@ -255,6 +278,27 @@ RL_ENVS, RL_WARM_ITERS, RL_TIMED_ITERS = 16, 1, 3
 OFFLINE_FRAGMENT, OFFLINE_ITERS = 256, 2
 MA_INSTANCES, MA_FRAGMENT, MA_ITERS = 8, 64, 2
 OFFPOLICY_UPDATE_REL_L2 = 1e-4
+# train_glue: BASELINE config 1 (the MNIST DP smoke) on 2 CPU workers, and
+# config 2, GPT-2 125M data-parallel through TorchTrainer, one worker a
+# visible card (up to 4), 8 x 512 tokens a card, as the JAX package's
+# benchmarks/gpt2_e2e.py; 2 warm-up and 10 timed steps. On any number of
+# cards every loss must be, bit for bit, that of the same data=W step run
+# with no Train layer (glue_dp_rank): that holds the glue. Against the
+# one-device step: on one card the worker runs the same model, params,
+# batch and steps, so its losses must be the direct step's exactly. On more,
+# every product runs on a rank's rows (other GEMM shapes, other roundings)
+# and the shards' gradients are summed in another order: the first
+# GLUE_HELD_STEPS losses must lie within GLUE_LOSS_RTOL (relative), as
+# dist_train holds its five. Later ones are printed, not held: AdamW's
+# first steps follow the gradients' signs, which rounding flips where a
+# gradient is near 0, and from the sixth step the recipe's loss spikes (on
+# one card too). On four H100 80GB HBM3 cards at 700 W the first five lay
+# 8.7e-8-3.0e-4 from the direct step's, the sixth 9.5e-4, the seventh
+# 2.1e-3, the eighth, after the spike, 0.12; the direct step with the plain
+# attention lay 1.4e-2 from it there.
+GLUE_MNIST_WORKERS, GLUE_MAX_WORKERS = 2, 4
+GLUE_BATCH, GLUE_SEQ, GLUE_WARM_STEPS, GLUE_TIMED_STEPS = 8, 512, 2, 10
+GLUE_LOSS_RTOL, GLUE_HELD_STEPS = 1e-3, 5
 SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
 SP_REL_L2 = 2e-2
 # moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
@@ -353,6 +397,16 @@ def attn_inputs(seed, B, S, H, KVH, D, device, fused=""):
     return q, t((B, S, KVH, D)), t((B, S, KVH, D))
 
 
+def glue_attn_case():
+    """The attention train_glue runs on each card: GPT-2 125M's heads at a
+    card's rows, q/k/v as views of the fused wqkv projection."""
+    from ray_tpu_torch.models.configs import gpt2_125m
+
+    cfg = gpt2_125m()
+    return (GLUE_BATCH, GLUE_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
+            True, "qkv")
+
+
 def phase_kernel_check(fa, bucket_len, device):
     import torch
 
@@ -370,8 +424,10 @@ def phase_kernel_check(fa, bucket_len, device):
             cases.append((2, S, H, KVH, D, True, ""))
     buckets = sorted({bucket_len(n, MAX_PROMPT) for n in PROMPT_LENS})
     cases += [(1, S, 32, 8, 128, True, "kv") for S in buckets]
-    # The training shape, q/k/v as views of the fused wqkv projection.
+    # The training shape, q/k/v as views of the fused wqkv projection,
+    # and train_glue's (GPT-2 125M, a card's rows).
     cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
+    cases.append(glue_attn_case())
     # ViT-L's attention: 197 tokens (64 past the last 128-key tile), no
     # mask, views of the fused wqkv projection, at vit_infer's batch 64.
     cases.append((VIT_BATCHES[0], VIT_SEQ, VIT_HEADS, VIT_HEADS,
@@ -469,7 +525,8 @@ def phase_kernel_check_bwd(fa, device):
     cases += [(2, 100, H, KVH, D, causal, "nan")
               for H, KVH, D in ((32, 8, 128), (16, 16, 64), (4, 2, 32))
               for causal in (True, False)]
-    cases.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"))
+    cases += [(TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, "qkv"),
+              glue_attn_case()]
     # The ring's chunk shapes at Llama-3-8B's width, causal and not.
     cases += [(1, SP_SEQ // SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM,
                causal, "") for causal in (True, False)]
@@ -1308,10 +1365,9 @@ def _run_dist_layout(name, layout, device_type, check_grads):
     return out
 
 
-def dist_train_rank(rank, world, addr, device_type, layouts, results=None):
-    """One rank of ``dist_train``: join the world, run every layout in
-    turn in that one process group, return (or put on ``results``) this
-    rank's numbers."""
+def _in_world(rank, world, addr, device_type, results, work):
+    """Join the world, run ``work()`` in it, leave; return (or put on
+    ``results``) its numbers, or the traceback."""
     import torch.distributed as dist
 
     from ray_tpu_torch.parallel import MeshBootstrap
@@ -1320,11 +1376,7 @@ def dist_train_rank(rank, world, addr, device_type, layouts, results=None):
         MeshBootstrap(addr, world, rank, local_rank=rank,
                       device_type=device_type).initialize()
         try:
-            # One rank runs the one-device step alone: a layout's
-            # gradients are checked with more ranks than one.
-            out = {"rank": rank, "world": world, "layouts": {
-                name: _run_dist_layout(name, layout, device_type, world > 1)
-                for name, layout in layouts.items()}}
+            out = work()
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -1338,17 +1390,29 @@ def dist_train_rank(rank, world, addr, device_type, layouts, results=None):
     return out
 
 
-def run_dist_ranks(world, device_type, layouts, timeout_s=900):
-    """``dist_train_rank`` on ``world`` spawned processes (one card each),
-    or in this process for a world of one; rank-ordered results."""
+def dist_train_rank(rank, world, addr, device_type, layouts, results=None):
+    """One rank of ``dist_train``: every layout in turn in one process
+    group. One rank runs the one-device step alone: a layout's gradients
+    are checked with more ranks than one."""
+    return _in_world(rank, world, addr, device_type, results, lambda: {
+        "rank": rank, "world": world, "layouts": {
+            name: _run_dist_layout(name, layout, device_type, world > 1)
+            for name, layout in layouts.items()}})
+
+
+def run_dist_ranks(world, device_type, layouts, timeout_s=900,
+                   rank_fn=dist_train_rank):
+    """``rank_fn`` (``dist_train_rank`` or ``glue_dp_rank``) on ``world``
+    spawned processes (one card each), or in this process for a world of
+    one; rank-ordered results."""
     import multiprocessing
 
     addr = f"localhost:{_free_port()}"
     if world == 1:
-        return [dist_train_rank(0, 1, addr, device_type, layouts)]
+        return [rank_fn(0, 1, addr, device_type, layouts)]
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=dist_train_rank,
+    procs = [ctx.Process(target=rank_fn,
                          args=(r, world, addr, device_type, layouts,
                                results))
              for r in range(world)]
@@ -1363,7 +1427,8 @@ def run_dist_ranks(world, device_type, layouts, timeout_s=900):
                 p.terminate()
     errors = [r["error"] for r in ranks if "error" in r]
     if errors:
-        raise RuntimeError("a dist_train rank failed:\n" + errors[0])
+        raise RuntimeError(f"a {rank_fn.__name__} rank failed:\n"
+                           + errors[0])
     return sorted(ranks, key=lambda r: r["rank"])
 
 
@@ -2593,6 +2658,420 @@ def phase_multi_agent_train(device):
         raise AssertionError("; ".join(failures))
 
 
+# ------------------------------------------------------------ train_glue
+
+def mnist_train_loop(config):
+    """BASELINE config 1's loop (the JAX package's tests/test_train.py
+    loop) against the port's Train layer: a numpy MLP on an MNIST-shaped
+    problem, 64 inputs and 10 classes a worker, the gradients
+    host-allreduced over gloo every step; rank 0 checkpoints when asked,
+    and a failure is injected once at ``fail_at``."""
+    import os
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.util import collective
+
+    ctx = train.get_context()
+    group = train.session.collective_group_name() or "train_default"
+    rng = np.random.default_rng(ctx.get_world_rank())
+    X = rng.standard_normal((64, 64)).astype(np.float32)
+    true_w = rng.standard_normal((64, 10)).astype(np.float32)
+    y = (X @ true_w).argmax(axis=1)
+    w1 = np.zeros((64, 32), np.float32)
+    w2 = np.zeros((32, 10), np.float32)
+    rng0 = np.random.default_rng(0)
+    if ctx.get_world_rank() == 0:
+        w1 = rng0.standard_normal((64, 32)).astype(np.float32) * 0.1
+        w2 = rng0.standard_normal((32, 10)).astype(np.float32) * 0.1
+    w1 = collective.broadcast(w1, 0, group)
+    w2 = collective.broadcast(w2, 0, group)
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        state = ckpt.to_dict()
+        w1, w2, start = state["w1"], state["w2"], state["step"]
+    lr = 0.1
+    for step in range(start, config["steps"]):
+        h = np.maximum(X @ w1, 0)
+        logits = h @ w2
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        onehot = np.eye(10, dtype=np.float32)[y]
+        loss = -np.mean(np.log(p[np.arange(len(y)), y] + 1e-9))
+        dlogits = (p - onehot) / len(y)
+        gw2 = h.T @ dlogits
+        dh = dlogits @ w2.T
+        dh[h <= 0] = 0
+        gw1 = X.T @ dh
+        n = collective.get_collective_group_size(group)
+        gw1 = collective.allreduce(gw1, group) / n
+        gw2 = collective.allreduce(gw2, group) / n
+        w1 -= lr * gw1
+        w2 -= lr * gw2
+        ckpt_out = None
+        if config.get("checkpoint") and ctx.get_world_rank() == 0:
+            ckpt_out = train.Checkpoint.from_dict(
+                {"w1": w1, "w2": w2, "step": step + 1})
+        if config.get("fail_at") is not None and \
+                step + 1 == config["fail_at"] and \
+                not os.path.exists(config["fail_marker"]):
+            with open(config["fail_marker"], "w") as f:
+                f.write("failed once")
+            raise RuntimeError("injected failure")
+        train.report({"loss": float(loss), "step": step},
+                     checkpoint=ckpt_out)
+
+
+def _tree_leaves(tree, prefix=""):
+    """(dotted name, tensor) of a nested dict, in sorted name order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _leaf_sums(tree, device):
+    """Each leaf's sum in f64, taken on ``device``: the same reduction on
+    the same kind of card gives the same bits."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, t in _tree_leaves(tree):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        out[name] = float(t.detach().to(device, torch.float64).sum())
+    return out
+
+
+def _timed_steps(ts, params, opt, batch, steps, warm):
+    """``steps`` steps, each loss read (as ``train.report`` reads it);
+    returns (losses, mean seconds of the steps after ``warm``)."""
+    import torch
+
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt, loss = ts.step(params, opt, batch)
+        losses.append(float(loss))
+    return losses, (time.perf_counter() - t0) / (steps - warm)
+
+
+def gpt2_train_loop(config):
+    """BASELINE config 2 on one worker a card: GPT-2 125M through the
+    JAX package's recipe (``benchmarks/gpt2_e2e.py``) on the backend's
+    mesh, ``transformer_train_step(cfg, get_mesh(), rules=RULES_DP)``, the
+    batch's rows split over the ranks by ``shard_batch``. Each step's loss
+    goes to the trainer process by ``train.report``; then every rank saves the
+    state sharded, and rank 0 reports the ranks' launches, peaks and the
+    state's leaf sums with the checkpoint."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import RULES_DP
+
+    loop_start = time.time()
+    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    mesh = train.get_mesh()
+    ts = train.transformer_train_step(cfg, mesh, rules=RULES_DP,
+                                      shift_inputs=True)
+    device = ts.device
+    torch.cuda.reset_peak_memory_stats(device)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(
+        config["seed"]))
+    batch = ts.shard_batch(
+        {"tokens": torch.from_numpy(config["tokens"]).to(device)})
+    rows = batch["tokens"].to_local().shape[0]
+    steps = config["warm"] + config["timed"]
+    _zero_launch_counts(fa)  # count this rank's main path alone
+    t0 = None
+    for i in range(steps):
+        if i == config["warm"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ts0 = time.perf_counter()
+        params, opt, loss = ts.step(params, opt, batch)
+        train.report({"loss": float(loss), "step": i,
+                      "step_ms": (time.perf_counter() - ts0) * 1e3})
+    step_s = (time.perf_counter() - t0) / config["timed"]
+    mine = {"launches": _launch_counts(fa), "rows": rows, "step_s": step_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    state = ts.state_tree(params, opt)
+    t_save = time.perf_counter()
+    ckpt = train.Checkpoint.save_sharded(state, config["ckpt_dir"])
+    save_s = time.perf_counter() - t_save
+    sums = _leaf_sums(state, device)
+    rank = train.get_context().get_world_rank()
+    train.report({"ranks": ranks, "sums": sums, "save_s": save_s,
+                  "loop_start": loop_start, "world": dist.get_world_size()},
+                 checkpoint=ckpt if rank == 0 else None)
+
+
+def _fit_glue(trainer):
+    """fit() and its wall seconds."""
+    t0 = time.perf_counter()
+    return trainer.fit(), time.perf_counter() - t0
+
+
+def _no_workers_left(failures, after):
+    import multiprocessing
+
+    left = multiprocessing.active_children()
+    if left:
+        failures.append(f"worker processes left after {after}: {left}")
+
+
+def _mnist_glue(root):
+    """BASELINE config 1 twice, as tests/test_train.py holds it: 5 steps on
+    2 CPU workers; and the failure at step 3 with one restart allowed. The
+    two runs go side by side (a spawn costs seconds of interpreter and
+    torch start, most of a run)."""
+    import concurrent.futures
+    import os
+
+    from ray_tpu_torch.train import (DataParallelTrainer, FailureConfig,
+                                     RunConfig, ScalingConfig)
+
+    failures = []
+    marker = os.path.join(root, "fail_marker")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        smoke_run = pool.submit(_fit_glue, DataParallelTrainer(
+            mnist_train_loop, train_loop_config={"steps": 5},
+            scaling_config=ScalingConfig(num_workers=GLUE_MNIST_WORKERS),
+            run_config=RunConfig(name="dp_smoke", storage_path=root)))
+        restart_run = pool.submit(_fit_glue, DataParallelTrainer(
+            mnist_train_loop,
+            train_loop_config={"steps": 6, "checkpoint": True, "fail_at": 3,
+                               "fail_marker": marker},
+            scaling_config=ScalingConfig(num_workers=GLUE_MNIST_WORKERS),
+            run_config=RunConfig(
+                name="dp_restart", storage_path=root,
+                failure_config=FailureConfig(max_failures=1))))
+        smoke, smoke_s = smoke_run.result()
+        restart, restart_s = restart_run.result()
+    _no_workers_left(failures, "the MNIST runs")
+    if not (smoke.metrics["step"] == 4 and smoke.metrics["loss"] < 2.5):
+        failures.append(f"MNIST smoke: {smoke.metrics}")
+    resumed = restart.checkpoint.to_dict()["step"]
+    if not (os.path.exists(marker) and restart.metrics["step"] == 5
+            and resumed == 6 and len(restart.spawn_s) == 2):
+        failures.append(f"MNIST restart: marker {os.path.exists(marker)}, "
+                        f"{restart.metrics}, checkpoint step {resumed}, "
+                        f"attempts {len(restart.spawn_s)}")
+    return {"workers": GLUE_MNIST_WORKERS, "backend": "gloo",
+            "smoke": {"metrics": smoke.metrics, "fit_s": smoke_s,
+                      "spawn_s": smoke.spawn_s},
+            "restart": {"metrics": restart.metrics, "fit_s": restart_s,
+                        "spawn_s": restart.spawn_s,
+                        "checkpoint_step": resumed}}, failures
+
+
+def _direct_gpt2(cfg, tokens, device):
+    """The loop's steps on one device in this process, without the Train
+    layer or a mesh. Returns (losses, seconds a timed step)."""
+    import torch
+
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    ts = transformer_train_step(cfg, device=device, shift_inputs=True)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(SEED))
+    return _timed_steps(ts, params, opt, {"tokens": tokens},
+                        GLUE_WARM_STEPS + GLUE_TIMED_STEPS, GLUE_WARM_STEPS)
+
+
+def _glue_dp_steps(rank, world, device_type):
+    import torch
+
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.parallel import RULES_DP, MeshSpec, make_mesh
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    ts = transformer_train_step(
+        cfg, make_mesh(MeshSpec(data=world), device_type), rules=RULES_DP,
+        shift_inputs=True)
+    params, opt = ts.init(torch.Generator(device=ts.device).manual_seed(SEED))
+    tokens = _train_tokens(cfg, GLUE_BATCH * world, GLUE_SEQ, ts.device)
+    losses, step_s = _timed_steps(
+        ts, params, opt, ts.shard_batch({"tokens": tokens}),
+        GLUE_WARM_STEPS + GLUE_TIMED_STEPS, GLUE_WARM_STEPS)
+    return {"rank": rank, "losses": losses, "step_s": step_s}
+
+
+def glue_dp_rank(rank, world, addr, device_type, _unused, results=None):
+    """One rank of train_glue's witness: gpt2_train_loop's steps on the
+    same data=world mesh, seed and batch, with no Train layer (no worker
+    group, session or report): its losses isolate what the glue does."""
+    return _in_world(rank, world, addr, device_type, results,
+                     lambda: _glue_dp_steps(rank, world, device_type))
+
+
+def phase_train_glue(device):
+    """The Train layer on the port's own worker processes: BASELINE
+    config 1 (the MNIST DP smoke, 2 CPU workers on gloo, and its restart)
+    and config 2 (GPT-2 125M, data-parallel through ``TorchTrainer``, one
+    worker a visible card up to 4, K1/K2/K3 on every rank)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig,
+                                     TorchTrainer, TrainCallback)
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rtpu_train_glue_")
+    # The workers inherit it: the temporary directories of their
+    # checkpoints go with the rest.
+    tmpdir = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = root
+    try:
+        mnist, failures = _mnist_glue(root)
+
+        world = min(torch.cuda.device_count(), GLUE_MAX_WORKERS)
+        cfg = gpt2_125m(remat=True, remat_policy="dots")
+        rng = np.random.default_rng(SEED)
+        tokens_np = rng.integers(0, cfg.vocab_size,
+                                 (GLUE_BATCH * world, GLUE_SEQ + 1))
+        tokens = torch.from_numpy(tokens_np).to(device)
+        direct, direct_s = _direct_gpt2(cfg, tokens, device)
+        del tokens
+        gc_collect()
+        # The same data=W step with no Train layer: in this process on one
+        # card, on W spawned ranks on more.
+        witness = run_dist_ranks(world, "cuda", None, rank_fn=glue_dp_rank)
+        gc_collect()
+
+        class Record(TrainCallback):
+            def __init__(self):
+                self.reports = []
+
+            def on_report(self, iteration, metrics, checkpoint=None):
+                self.reports.append(metrics)
+
+        rec = Record()
+        fit_start = time.time()
+        result, fit_s = _fit_glue(TorchTrainer(
+            gpt2_train_loop,
+            train_loop_config={"seed": SEED, "tokens": tokens_np,
+                               "warm": GLUE_WARM_STEPS,
+                               "timed": GLUE_TIMED_STEPS,
+                               "ckpt_dir": f"{root}/gpt2_state"},
+            scaling_config=ScalingConfig(num_workers=world),
+            run_config=RunConfig(name="gpt2_dp", storage_path=root,
+                                 callbacks=[rec])))
+        steps = GLUE_WARM_STEPS + GLUE_TIMED_STEPS
+        losses = [r["loss"] for r in rec.reports if "loss" in r]
+        step_ms = [r["step_ms"] for r in rec.reports if "loss" in r]
+        final = rec.reports[-1]
+        ranks = final["ranks"]
+        t0 = time.perf_counter()
+        tree = result.checkpoint.load_sharded()
+        load_s = time.perf_counter() - t0
+        sums = _leaf_sums(tree, device)
+        del tree
+        gc_collect()
+
+        want = {"flash_fwd": 2 * cfg.n_layers * steps,
+                "flash_bwd_dq": cfg.n_layers * steps,
+                "flash_bwd_dkv": cfg.n_layers * steps}
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            failures.append(f"GPT-2 losses: {losses}")
+        elif abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            failures.append(f"first loss {losses[0]} is not within 0.5 of "
+                            f"ln({cfg.vocab_size})")
+        elif not losses[-1] < losses[0]:
+            failures.append(f"loss did not fall: {losses}")
+        # The glue alone: every loss bit for bit the witness's, on any W.
+        mesh_losses = witness[0]["losses"]
+        if losses != mesh_losses or any(
+                r["losses"] != mesh_losses for r in witness):
+            failures.append(f"losses {losses} against the same data={world} "
+                            f"step without the Train layer: "
+                            f"{[r['losses'] for r in witness]}")
+        # Against one device: one card, the same losses, bit for bit;
+        # more: see GLUE_LOSS_RTOL.
+        held = steps if world == 1 else GLUE_HELD_STEPS
+        rtol = 0.0 if world == 1 else GLUE_LOSS_RTOL
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, direct)]
+        if len(rel) != steps or max(rel[:held]) > rtol:
+            failures.append(f"losses {losses} against the direct step's "
+                            f"{direct}: relative {rel}, the first {held} "
+                            f"held to {rtol}")
+        for r, got in enumerate(ranks):
+            if got["launches"] != want:
+                failures.append(f"rank {r} launches {got['launches']}, "
+                                f"expected {want}")
+            if got["rows"] != GLUE_BATCH:
+                failures.append(f"rank {r} took {got['rows']} rows")
+        if sorted(sums) != sorted(final["sums"]) or any(
+                sums[k] != final["sums"][k] for k in sums):
+            bad = [k for k in sums if sums[k] != final["sums"].get(k)]
+            failures.append(f"checkpoint read back: {len(sums)} leaves, "
+                            f"{len(final['sums'])} reported, sums differ "
+                            f"on {bad[:5]}")
+        _no_workers_left(failures, "the GPT-2 run")
+        step_s = statistics.mean(r["step_s"] for r in ranks)
+        tokens_per_card = GLUE_BATCH * GLUE_SEQ
+        emit("train_glue", ok=not failures, failures=failures,
+             phase_s=time.perf_counter() - phase_t0, mnist=mnist,
+             gpt2={
+                 "model": "gpt2_125m", "n_layers": cfg.n_layers,
+                 "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "vocab": cfg.vocab_size, "num_params": cfg.num_params(),
+                 "remat_policy": cfg.remat_policy, "workers": world,
+                 "backend": "nccl", "mesh": {"data": world},
+                 "rules": "RULES_DP", "batch_per_card": GLUE_BATCH,
+                 "seq": GLUE_SEQ, "warm_steps": GLUE_WARM_STEPS,
+                 "timed_steps": GLUE_TIMED_STEPS, "losses": losses,
+                 "direct_losses": direct, "loss_rel_diff": rel,
+                 "loss_rtol": rtol, "loss_held_steps": held,
+                 "mesh_losses": mesh_losses,
+                 "launches_by_rank": [r["launches"] for r in ranks],
+                 "launches_per_step": {k: v / steps for k, v in
+                                       ranks[0]["launches"].items()},
+                 "worker_step_ms": step_s * 1e3,
+                 "worker_step_ms_by_rank": [r["step_s"] * 1e3
+                                            for r in ranks],
+                 "worker_step_ms_each": step_ms,
+                 "direct_step_ms": direct_s * 1e3,
+                 "mesh_step_ms_by_rank": [r["step_s"] * 1e3
+                                          for r in witness],
+                 "tokens_per_s_per_card": tokens_per_card / step_s,
+                 "direct_tokens_per_s": tokens_per_card * world / direct_s,
+                 "fit_s": fit_s, "spawn_s": result.spawn_s,
+                 # Spawn, the process group, the mesh and the session,
+                 # up to the loop's first line.
+                 "start_to_loop_s": final["loop_start"] - fit_start,
+                 "save_s": final["save_s"], "load_s": load_s,
+                 "checkpoint_leaves": len(sums),
+                 "peak_mem_gib_per_rank": [r["peak_mem_gib"]
+                                           for r in ranks]})
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return {k: sum(r["launches"][k] for r in ranks) for k in want}
+    finally:
+        if tmpdir is None:
+            os.environ.pop("TMPDIR")
+        else:
+            os.environ["TMPDIR"] = tmpdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def bwd_flops(B, S, H, D, causal, products):
     """K2 (3 products) or K3 (4): 2 flops a multiply-add over the (query,
     key) pairs the mask keeps."""
@@ -2813,6 +3292,8 @@ def main() -> int:
     phase_offline_train(device, sac_columns)
     phase_multi_agent_train(device)
     gc_collect()
+    glue_launches = phase_train_glue(device)
+    gc_collect()
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 
     kernels = [{
@@ -2822,13 +3303,15 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:47",
         "launches": (serve_launches + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
-                     + dist_launches["flash_fwd"] + vit_launches),
+                     + dist_launches["flash_fwd"] + vit_launches
+                     + glue_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,
                              "dist_train": dist_launches["flash_fwd"],
-                             "vit": vit_launches},
+                             "vit": vit_launches,
+                             "train_glue": glue_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
         "device_ms": fwd_timed["device_ms"],
@@ -2847,10 +3330,11 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + moe_launches[name]
-                         + dist_launches[name]),
+                         + dist_launches[name] + glue_launches[name]),
             "launches_by_path": {"train": train_launches[name],
                                  "moe_train": moe_launches[name],
-                                 "dist_train": dist_launches[name]},
+                                 "dist_train": dist_launches[name],
+                                 "train_glue": glue_launches[name]},
             "max_abs_err": err,
             "ms": timed["ms"],
             "device_ms": timed["device_ms"],

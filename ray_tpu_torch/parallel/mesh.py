@@ -139,13 +139,16 @@ class MeshBootstrap:
     ``coordinator_address`` is ``"host:port"`` (TCP) or an init-method URL
     (``file:///path`` for processes of one host). ``local_rank`` picks the
     card (default ``LOCAL_RANK``, else the rank); ``device_type`` is ``cuda``
-    unless the caller asks for ``"cpu"``."""
+    unless the caller asks for ``"cpu"``. ``store``, a client of a
+    ``TCPStore`` server that another process owns (the trainer process's),
+    takes the place of the address's rendezvous."""
 
     coordinator_address: str
     num_processes: int
     process_id: int
     local_rank: Optional[int] = None
     device_type: Optional[str] = None
+    store: Optional[dist.Store] = None
 
     def initialize(self) -> None:
         device_type = self.device_type or resolve_device(None).type
@@ -157,6 +160,11 @@ class MeshBootstrap:
             backend = "nccl"
         else:
             backend = "gloo"
+        if self.store is not None:
+            dist.init_process_group(backend, store=self.store,
+                                    world_size=self.num_processes,
+                                    rank=self.process_id)
+            return
         addr = self.coordinator_address
         init_method = addr if "://" in addr else f"tcp://{addr}"
         dist.init_process_group(backend, init_method=init_method,

@@ -1,7 +1,8 @@
 """The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor any
 module of the JAX package (nor gymnasium, but inside the functions that
-build a gymnasium env), and its entry points refuse to fall back to the
-CPU on their own."""
+build a gymnasium env, nor cloudpickle, which the card's machine lacks),
+also inside a spawned train worker, and its entry points refuse to fall
+back to the CPU on their own."""
 import pathlib
 import re
 import subprocess
@@ -20,6 +21,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["gymnasium"] = None    # and `import gymnasium`
 sys.modules["ray_tpu"] = None      # and any module of the JAX package
+sys.modules["cloudpickle"] = None  # and cloudpickle
 sys.path.insert(0, {repo!r})
 import ray_tpu_torch
 names = ["ray_tpu_torch"]
@@ -28,8 +30,9 @@ for info in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     names.append(info.name)
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules
-                if m in ("ray_tpu", "jax") and sys.modules[m] is not None
-                or m.startswith(("ray_tpu.", "jax.")))
+                if m in ("ray_tpu", "jax", "cloudpickle")
+                and sys.modules[m] is not None
+                or m.startswith(("ray_tpu.", "jax.", "cloudpickle.")))
 print("IMPORTED", len(names))
 print("NAMES", " ".join(names))
 print("LEAKED", leaked)
@@ -53,6 +56,60 @@ def test_package_imports_without_jax_or_ray_tpu():
         "offline", "offline.io", "offline.bc", "offline.cql",
         "offline.marwil", "env.multi_agent_env")} <= set(
             lines["NAMES"].split())
+    assert {"ray_tpu_torch.train." + m for m in TRAIN_MODULES} | {
+        "ray_tpu_torch.util.collective"} <= set(lines["NAMES"].split())
+
+
+TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
+                 "worker_group", "backend", "backend_executor",
+                 "data_parallel_trainer", "predictor")
+
+# Run as a file: a spawned worker runs it again as its main module, so the
+# blocks at the top hold in the worker too.
+_WORKER_SCRIPT = r"""
+import importlib, sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+def import_train_layer(names):
+    for name in names:
+        importlib.import_module(name)
+    return leaked()
+
+
+if __name__ == "__main__":
+    from ray_tpu_torch.train import WorkerGroup
+
+    wg = WorkerGroup(1)
+    try:
+        print("WORKER", wg.execute(import_train_layer, {names!r})[0])
+    finally:
+        wg.shutdown()
+    print("DRIVER", leaked())
+"""
+
+
+def test_train_worker_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
+    """A spawned train worker imports every module of the Train layer and
+    the host collectives with jax, the JAX package and cloudpickle
+    blocked, and imports none of them."""
+    names = ["ray_tpu_torch.train." + m for m in TRAIN_MODULES] + [
+        "ray_tpu_torch.util.collective"]
+    script = tmp_path / "worker_imports.py"
+    script.write_text(_WORKER_SCRIPT.format(repo=str(REPO), names=names))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "WORKER []" in proc.stdout.splitlines(), proc.stdout
+    assert "DRIVER []" in proc.stdout.splitlines(), proc.stdout
 
 
 def test_sources_name_no_jax_or_ray_tpu():
@@ -158,3 +215,37 @@ def test_offpolicy_offline_and_multi_agent_entry_points_raise_without_cuda(
         made = make(device="cpu")
         if hasattr(made, "stop"):
             made.stop()
+
+
+def _noop_loop(config):
+    pass
+
+
+def test_torch_trainer_refuses_before_any_spawn(monkeypatch):
+    """TorchTrainer's workers take the card unless the caller asks for the
+    CPU: with no CUDA it raises; with fewer cards than workers, or a worker
+    asking for two cards, too. Each before any worker is spawned."""
+    from ray_tpu_torch.train import ScalingConfig, TorchPredictor, TorchTrainer
+    from ray_tpu_torch.train import worker_group
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a worker was spawned")
+
+    monkeypatch.setattr(worker_group, "_WorkerProcess", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchTrainer(_noop_loop, train_loop_config={}).fit()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchPredictor(lambda p, x: x, {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 workers need 2 cards, 1 visible"):
+        TorchTrainer(_noop_loop, train_loop_config={},
+                     scaling_config=ScalingConfig(num_workers=2)).fit()
+    with pytest.raises(ValueError, match="exactly one"):
+        TorchTrainer(_noop_loop, train_loop_config={},
+                     scaling_config=ScalingConfig(
+                         resources_per_worker={"GPU": 2})).fit()
+    # Asked for explicitly, the CPU is taken: the spawn is reached.
+    with pytest.raises(AssertionError, match="a worker was spawned"):
+        TorchTrainer(_noop_loop, train_loop_config={}, device="cpu").fit()
