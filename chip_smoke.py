@@ -90,6 +90,27 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    further (x1.5) from the f32 forward; one int8-weight forward within
    VIT_INT8_REL_L2 of the bf16 one. Prints ms a batch, images/s, peak
    memory and one profiled forward's busy time and idle share. Then
+   ``data_infer``, BASELINE config 5 through the data layer
+   (``ray_tpu_torch.data``): ``range(2048 W, parallelism=8 W)`` for W
+   pool workers -> a task-stage ``map_batches`` that makes each row's
+   224x224x3 uint8 image from ``default_rng(SEED + id)`` ->
+   ``ImageNormalizer`` ->
+   ``BatchPredictor(TorchPredictor)`` over ViT-L/16 (seeded weights in a
+   dict checkpoint), batch 64, one pool worker a visible card up to 4,
+   each running K1 -> ``take_all``. Checks every id once and in order,
+   finite [64, 1000] f32 logits, each worker's K1 launches at 24 a batch
+   (24 x 32 W in all), the logits against the same batches through
+   ``vit.forward`` in this process on card 0 after the pool has gone (bit
+   for bit on one card; on more, each batch bit for bit or within
+   DATA_MULTI_REL_L2), then the same normalised data through
+   ``iter_device_batches`` onto card 0 (batch 64, prefetch 2: every
+   batch equal to its numpy counterpart, its logits the pool's), and that
+   no worker is left, also after an injected worker death. Prints
+   ``take_all``'s wall split into the pool's start (spawn, the
+   checkpoint's load), the first block and the steady images/s beside
+   ``vit_infer``'s, each worker's UDF share and pipe seconds, the
+   driver's pipe seconds, ``iter_device_batches``' copy GB/s and the idle
+   share of its forwards, and peak memory a worker. Then
    ``ppo_train``: PPO with the default Nature-CNN module on
    ``CnnRolloutBenchEnv(256)`` (84x84x4 uint8 frames), fragment 32, train
    batch 8192, minibatch 1024, 2 epochs, the runner's policy and the
@@ -251,6 +272,17 @@ VIT_BATCHES = (64, 256)
 VIT_SEQ, VIT_HEADS, VIT_HEAD_DIM = 197, 16, 64
 VIT_INT8_REL_L2 = 0.15
 VIT_TIMED = 5
+# data_infer: BASELINE config 5 as a pipeline into a pool of card workers:
+# one pool worker a visible card up to DATA_MAX_WORKERS, and DATA_ROWS rows
+# in DATA_BLOCKS blocks a worker (256 rows, so every DATA_BATCH-row batch
+# lies in one block; each worker runs 7 blocks after its first, which a
+# fresh process pays its warm-up in). Its logits against the same batches through vit.forward
+# in this process on card 0: bit for bit on one card (same program, card
+# and shapes); on more, a card's cuBLAS may choose another algorithm, so a
+# batch is bit for bit or within DATA_MULTI_REL_L2 (relative L2).
+DATA_ROWS, DATA_BLOCKS, DATA_BATCH, DATA_MAX_WORKERS = 2048, 8, 64, 4
+DATA_PREFETCH = 2
+DATA_MULTI_REL_L2 = 1e-5
 # PPO on the Atari-shaped CnnRolloutBenchEnv (BASELINE config 4's shape):
 # 256 envs, fragment 32 (train batch 8192), minibatch 1024, 2 epochs.
 PPO_ENVS, PPO_FRAGMENT, PPO_MINIBATCH, PPO_EPOCHS = 256, 32, 1024, 2
@@ -1830,7 +1862,272 @@ def phase_vit_infer(fa, device):
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches
+    return launches, rows[0]["images_per_s"]
+
+
+def data_images(batch):
+    """data_infer's task UDF: each row's uint8 image from
+    ``default_rng(SEED + id)``."""
+    import numpy as np
+
+    from ray_tpu_torch.models.vit import vit_l16
+
+    size = vit_l16().image_size
+    return {"id": batch["id"], "image": np.stack([
+        np.random.default_rng(SEED + int(i)).integers(
+            0, 256, (size, size, 3), dtype=np.uint8) for i in batch["id"]])}
+
+
+def vit_l16_forward(params, images):
+    """The pool workers' ``apply_fn``: ViT-L/16 (f32 params, bf16
+    compute)."""
+    from ray_tpu_torch.models import vit
+
+    return vit.forward(params, images, vit.vit_l16())
+
+
+class ExitOnFirstBatch:
+    """data_infer's injected failure: a pool worker that leaves with exit
+    code 3 on its first batch."""
+
+    def __call__(self, batch):
+        import os
+
+        os._exit(3)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _pool_row(stats):
+    return next(o for o in stats.to_dict()["operators"]
+                if o["operator"].startswith("ActorPool["))
+
+
+def phase_data_infer(device, in_process_images_per_s):
+    """BASELINE config 5 through the data layer: ``range`` -> a task-stage
+    ``map_batches`` (seeded uint8 images) -> ``ImageNormalizer`` ->
+    ``BatchPredictor(TorchPredictor)`` over ViT-L/16, one pool worker a
+    visible card (up to 4) running K1 -> ``take_all``; then the same
+    normalised dataset through ``iter_device_batches`` onto card 0."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch import flags
+    from ray_tpu_torch.data.executor import PoolWorkerDiedError
+    from ray_tpu_torch.data.preprocessors import ImageNormalizer
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint, TorchPredictor
+
+    cfg = vit.vit_l16()
+    workers = min(torch.cuda.device_count(), DATA_MAX_WORKERS)
+    n_rows, n_blocks = DATA_ROWS * workers, DATA_BLOCKS * workers
+    block_rows = n_rows // n_blocks
+    batches = n_rows // DATA_BATCH
+    failures = []
+    params = vit.init_params(
+        torch.Generator(device=device).manual_seed(SEED), cfg, device)
+    host_params = _tree_to(params, "cpu")
+    del params
+    gc_collect()
+    ckpt = Checkpoint.from_dict({"params": host_params})
+    normalized = ImageNormalizer().transform(
+        rd.range(n_rows, parallelism=n_blocks).map_batches(
+            data_images))
+    predicted = BatchPredictor(
+        ckpt, TorchPredictor, apply_fn=vit_l16_forward,
+        input_column="image").predict(
+            normalized, batch_size=DATA_BATCH, min_scoring_workers=workers,
+            max_scoring_workers=workers, num_gpus_per_actor=1)
+    _zero_launch_counts(fa)  # this process launches nothing in the pool
+    t0 = time.perf_counter()
+    rows = predicted.take_all()
+    take_all_s = time.perf_counter() - t0
+    if fa.flash_attention_fwd.launches:
+        failures.append("this process launched K1 during the pool's run")
+    _no_workers_left(failures, "data_infer's pool")
+    pool = _pool_row(predicted.stats())
+    ids = [int(r["id"]) for r in rows]
+    if ids != list(range(n_rows)):
+        failures.append(f"ids out: {len(ids)} rows, in order and each "
+                        f"once: {ids == list(range(n_rows))}")
+    logits = np.stack([r["predictions"] for r in rows])
+    del rows
+    if (logits.shape != (n_rows, cfg.num_classes)
+            or logits.dtype != np.float32 or not np.isfinite(logits).all()):
+        failures.append(f"logits {logits.shape} {logits.dtype}, finite "
+                        f"{bool(np.isfinite(logits).all())}")
+    meters = pool["actor_pool"]["workers"]
+    per_worker = []
+    for w in meters:
+        k1 = w.get("kernel_launches", {}).get("flash_fwd")
+        if k1 != cfg.n_layers * w.get("batches", -1):
+            failures.append(f"worker {w['slot']} (card {w['card']}): K1 "
+                            f"{k1} launches for {w.get('batches')} batches")
+        per_worker.append({
+            "slot": w["slot"], "card": w["card"], "pid": w["pid"],
+            "batches": w.get("batches"), "blocks": w.get("blocks"),
+            "k1_launches": k1, "spawn_s": w["spawn_s"],
+            "load_s": w["init_s"], "udf_s": w.get("udf_s"),
+            "first_block_udf_s": w.get("first_block_udf_s"),
+            "udf_share_of_wall": w.get("udf_s", 0) / pool["wall_s"],
+            # Its UDF a batch after its first block (the forward in
+            # process is vit_infer's ms at batch 64).
+            "udf_ms_a_batch_after_first": 1e3 * (
+                w.get("udf_s", 0) - w.get("first_block_udf_s", 0))
+            / max(1, (w.get("batches") or 0) - block_rows // DATA_BATCH),
+            "recv_s": w.get("recv_s"), "send_s": w.get("send_s"),
+            "peak_card_gib": (w.get("peak_card_bytes") or 0) / 2 ** 30})
+    pool_launches = sum(w["k1_launches"] or 0 for w in per_worker)
+    if (pool_launches != cfg.n_layers * batches
+            or sum(w["batches"] or 0 for w in per_worker) != batches
+            or len(per_worker) != workers
+            or sorted(w["card"] for w in per_worker) != list(range(workers))):
+        failures.append(f"pool: {len(per_worker)} workers on cards "
+                        f"{[w['card'] for w in per_worker]}, K1 "
+                        f"{pool_launches} launches, not "
+                        f"{cfg.n_layers * batches}")
+    # Blocks go to the least-loaded worker, ties to the first: block i <
+    # workers is worker i's first, and with preserve_order the workers-th
+    # block out is the last of the first round. Steady: the rows after it
+    # over the time from it to the last block out.
+    out_s = pool["block_out_s"]
+    if len(out_s) != n_blocks:
+        failures.append(f"pool: {len(out_s)} blocks out, not {n_blocks}")
+    first_s = out_s[0]
+    round_s = out_s[workers - 1]
+    steady = (n_rows - workers * block_rows) / max(1e-9, out_s[-1] - round_s)
+
+    # The witness: the same batches through vit.forward here on card 0,
+    # after the pool has gone.
+    params = _tree_to(host_params, device)
+    norm = ImageNormalizer()
+    bitwise, worst = 0, 0.0
+    with torch.inference_mode():
+        for b in range(batches):
+            ids_b = np.arange(b * DATA_BATCH, (b + 1) * DATA_BATCH)
+            x = norm.transform_batch(data_images({"id": ids_b}))["image"]
+            want = vit.forward(params, torch.from_numpy(x).to(device),
+                               cfg).cpu().numpy()
+            got = logits[b * DATA_BATCH:(b + 1) * DATA_BATCH]
+            if np.array_equal(got, want):
+                bitwise += 1
+            else:
+                worst = max(worst, float(np.linalg.norm(got - want)
+                                         / np.linalg.norm(want)))
+    if bitwise != batches and (workers == 1 or worst > DATA_MULTI_REL_L2):
+        failures.append(f"witness: {bitwise} of {batches} batches bit for "
+                        f"bit, the worst other {worst} relative L2 (tol "
+                        f"{'0' if workers == 1 else DATA_MULTI_REL_L2})")
+
+    # iter_device_batches onto card 0: pass 1 checks every batch against
+    # its numpy counterpart and its logits against the pool's; pass 2
+    # times the forwards on batches already there; pass 3 the stream with
+    # the forwards, pass 4 without (copy GB/s).
+    held = normalized.materialize()
+    _zero_launch_counts(fa)
+    on_card, exact, same_logits = [], 0, 0
+    with torch.inference_mode():
+        for b, batch in enumerate(held.iter_device_batches(
+                batch_size=DATA_BATCH, device=device,
+                prefetch=DATA_PREFETCH)):
+            ids_b = np.arange(b * DATA_BATCH, (b + 1) * DATA_BATCH)
+            want = norm.transform_batch(data_images({"id": ids_b}))["image"]
+            exact += int(np.array_equal(batch["image"].cpu().numpy(), want)
+                         and np.array_equal(batch["id"].cpu().numpy(),
+                                            ids_b))
+            out = vit.forward(params, batch["image"], cfg).cpu().numpy()
+            same_logits += int(np.array_equal(
+                out, logits[b * DATA_BATCH:(b + 1) * DATA_BATCH])
+                or workers > 1 and float(np.linalg.norm(
+                    out - logits[b * DATA_BATCH:(b + 1) * DATA_BATCH])
+                    / np.linalg.norm(out)) <= DATA_MULTI_REL_L2)
+            on_card.append(batch["image"])
+    leg_launches = fa.flash_attention_fwd.launches
+    if (len(on_card) != batches or exact != batches
+            or same_logits != batches
+            or leg_launches != cfg.n_layers * batches):
+        failures.append(f"iter_device_batches: {len(on_card)} batches, "
+                        f"{exact} exact, {same_logits} with the pool's "
+                        f"logits, K1 {leg_launches} launches")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for x in on_card:
+            vit.forward(params, x, cfg)
+        torch.cuda.synchronize()
+        forwards_s = time.perf_counter() - t
+        del on_card
+        t = time.perf_counter()
+        for batch in held.iter_device_batches(
+                batch_size=DATA_BATCH, device=device,
+                prefetch=DATA_PREFETCH):
+            vit.forward(params, batch["image"], cfg)
+        torch.cuda.synchronize()
+        fed_s = time.perf_counter() - t
+        t = time.perf_counter()
+        moved = 0
+        for batch in held.iter_device_batches(
+                batch_size=DATA_BATCH, device=device,
+                prefetch=DATA_PREFETCH):
+            moved += sum(v.numel() * v.element_size()
+                         for v in batch.values())
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t
+    del held, params
+
+    # An injected failure: a card worker that dies on its first batch,
+    # with RTPU_DATA_FT off, fails the stage and leaves no process.
+    with flags.scoped({"RTPU_DATA_FT": "0"}):
+        try:
+            rd.range(DATA_BATCH, parallelism=1).map_batches(
+                ExitOnFirstBatch, concurrency=1, num_gpus=1).take_all()
+            failures.append("the injected failure did not fail the stage")
+        except PoolWorkerDiedError as e:
+            if e.exitcode != 3:
+                failures.append(f"injected failure: {e}")
+    _no_workers_left(failures, "data_infer's injected failure")
+    if os.path.isdir(ckpt.path):
+        import shutil
+
+        shutil.rmtree(ckpt.path)
+    emit("data_infer", ok=not failures, failures=failures, model="vit_l16",
+         card=card_line(), workers=workers, rows=n_rows,
+         blocks=n_blocks, batch=DATA_BATCH,
+         take_all_s=take_all_s,
+         split={"pool_wall_s": pool["wall_s"],
+                "pool_ready_s": pool["ready_s"],
+                "spawn_s": max(w["spawn_s"] for w in per_worker),
+                "load_s": max(w["load_s"] for w in per_worker),
+                "first_block_s": first_s,
+                "first_round_s": round_s,
+                "steady_images_per_s": steady,
+                "images_per_s_whole": n_rows / take_all_s,
+                "vit_infer_images_per_s_batch64": in_process_images_per_s},
+         driver_send_s=pool["driver_send_s"],
+         driver_recv_s=pool["driver_recv_s"],
+         pool_utilization=pool["actor_pool"]["utilization"],
+         pool_workers=per_worker, k1_launches_pool=pool_launches,
+         witness={"bitwise_batches": bitwise, "batches": batches,
+                  "worst_rel_l2": worst},
+         device_batches={"batches": batches, "exact": exact,
+                         "logits_equal_pool": same_logits,
+                         "k1_launches": leg_launches,
+                         "prefetch": DATA_PREFETCH,
+                         "copy_gb_per_s": moved / copy_s / 1e9,
+                         "copy_s": copy_s, "fed_forwards_s": fed_s,
+                         "forwards_alone_s": forwards_s,
+                         "idle_share": 1 - forwards_s / fed_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return pool_launches + leg_launches
 
 
 def phase_ppo_train(device):
@@ -3283,7 +3580,9 @@ def main() -> int:
     gc_collect()
     phase_train_grad_check(device)
     gc_collect()
-    vit_launches = phase_vit_infer(fa, device)
+    vit_launches, vit_images_per_s = phase_vit_infer(fa, device)
+    gc_collect()
+    data_launches = phase_data_infer(device, vit_images_per_s)
     gc_collect()
     phase_ppo_train(device)
     gc_collect()
@@ -3304,13 +3603,14 @@ def main() -> int:
         "launches": (serve_launches + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
-                     + glue_launches["flash_fwd"]),
+                     + data_launches + glue_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,
                              "dist_train": dist_launches["flash_fwd"],
                              "vit": vit_launches,
+                             "data_infer": data_launches,
                              "train_glue": glue_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],

@@ -40,6 +40,16 @@ _define("RTPU_SP_MODE", str, "ring",
         "Context-parallel attention scheme over the seq mesh axis: "
         "ring | ulysses | auto (ulysses when head counts divide the axis).")
 
+_define("RTPU_DATA_FT", bool, True,
+        "Fault-tolerant data pool: a map_batches pool worker that dies "
+        "is replaced on the same card and its in-flight blocks are sent "
+        "to the replacement (bounded by RTPU_DATA_FT_RETRIES). 0 makes "
+        "the stage raise PoolWorkerDiedError at the death.")
+_define("RTPU_DATA_FT_RETRIES", int, 3,
+        "Per-block retry budget of a self-healing pool stage: how many "
+        "times one input block may be resent after its pool worker died "
+        "before the stage raises.")
+
 
 def get(name: str) -> Any:
     """Read a registered flag from the environment (call-time), else its

@@ -4,7 +4,7 @@ The port's counterpart of the JAX package's ``train/predictor.py`` (the
 reference's Predictor.from_checkpoint/predict). ``TorchPredictor`` takes
 the place of ``JaxPredictor``: ``apply_fn(params, x)`` under
 ``torch.inference_mode`` on the port's device, numpy in and out.
-``BatchPredictor`` needs the actor pool and the data glue, not ported yet.
+``BatchPredictor`` runs one in each worker of a data pool, one card each.
 """
 from __future__ import annotations
 
@@ -97,12 +97,56 @@ class TorchPredictor(Predictor):
         return {**batch, self._output_column: out}
 
 
-class BatchPredictor:
-    """Scalable inference over a dataset with an actor pool: needs the
-    port's actor pool and data glue (ROADMAP item G)."""
+class _ScoringWorker:
+    """The pool worker's UDF behind ``BatchPredictor.predict``: a predictor
+    made from the checkpoint in the worker, on the worker's card. It is
+    module-level, and takes what the reference's nested ``_ScoringActor``
+    closes over as constructor arguments, because a pool worker receives
+    its class by plain pickle, by reference."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BatchPredictor needs the port's actor pool and data glue, "
-            "which are not ported yet (ROADMAP item G); use TorchPredictor "
-            "on each batch")
+    def __init__(self, checkpoint: Checkpoint, predictor_cls,
+                 predictor_kwargs: Dict[str, Any],
+                 predict_kwargs: Dict[str, Any]):
+        self.predictor = predictor_cls.from_checkpoint(checkpoint,
+                                                       **predictor_kwargs)
+        self._predict_kwargs = predict_kwargs
+
+    def __call__(self, batch):
+        return self.predictor.predict(batch, **self._predict_kwargs)
+
+
+class BatchPredictor:
+    """Scalable inference: a predictor in each pool worker, over
+    ``Dataset.map_batches``.
+
+    The reference's ``train/batch_predictor.py`` (predict -> map_batches
+    on an actor pool). Each worker takes one card (``num_gpus_per_actor``,
+    default 1): ask for the CPU with ``num_gpus_per_actor=0`` and the
+    predictor's ``device="cpu"``. Asking for more cards than are visible,
+    or for a card without CUDA, raises before any worker is spawned.
+    """
+
+    def __init__(self, checkpoint: Checkpoint, predictor_cls,
+                 **predictor_kwargs):
+        self._checkpoint = checkpoint
+        self._predictor_cls = predictor_cls
+        self._predictor_kwargs = predictor_kwargs
+
+    def predict(
+        self,
+        dataset,
+        *,
+        batch_size: int = 4096,
+        min_scoring_workers: int = 1,
+        max_scoring_workers: int = 1,
+        num_gpus_per_actor: float = 1,
+        **predict_kwargs,
+    ):
+        return dataset.map_batches(
+            _ScoringWorker,
+            batch_size=batch_size,
+            concurrency=(min_scoring_workers, max_scoring_workers),
+            num_gpus=num_gpus_per_actor,
+            fn_constructor_args=(self._checkpoint, self._predictor_cls,
+                                 self._predictor_kwargs, predict_kwargs),
+        )

@@ -9,7 +9,8 @@ own process model. World rank is the spawn order; ``local_rank`` equals
 it, ``node_rank`` is 0 and ``node_id`` is the host name.
 
 Each worker runs ``RayTrainWorker``'s methods from a command loop over a
-pipe: the trainer process (the one that calls ``fit()``) sends ``(seq,
+pipe (``util/procs.py``, shared with the data layer's pool workers): the
+trainer process (the one that calls ``fit()``) sends ``(seq,
 method, args, kwargs)`` pickled, the worker answers ``(seq, "ok",
 result)`` or ``(seq, "err", traceback)``. The train loop runs on a thread
 of the worker, and its results go through the session's queue, as in the
@@ -22,12 +23,8 @@ process watches every worker's sentinel while it waits and raises
 from __future__ import annotations
 
 import multiprocessing
-import multiprocessing.connection as mpc
-import os
-import pickle
 import queue
 import socket
-import sys
 import threading
 import time
 import traceback
@@ -36,12 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..util import procs
 from .session import TrainContext, _get_session, _init_session, _shutdown_session
-
-# Seconds ``shutdown`` waits for a worker to leave on its own before it
-# terminates it, and then kills it.
-JOIN_TIMEOUT_S = 10.0
-TERMINATE_TIMEOUT_S = 5.0
 
 
 class WorkerDiedError(RuntimeError):
@@ -152,75 +145,34 @@ class RayTrainWorker:
 
 def _worker_main(conn, rank: int, device_type: str) -> None:
     """A worker process: take this rank's card, then serve commands until
-    the trainer process sends None or goes away; then leave at once."""
+    the trainer process sends None or goes away."""
     if device_type == "cuda":
-        # Before any CUDA work: device.py and MeshBootstrap read LOCAL_RANK.
-        os.environ["LOCAL_RANK"] = str(rank)
-        torch.cuda.set_device(rank)
-    _serve(conn, RayTrainWorker(rank if device_type == "cuda" else None))
-    # The backend has torn down its process group; the interpreter's own
-    # teardown (torch's modules, a train thread left behind) would only
-    # cost the trainer process its join.
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
-
-
-def _serve(conn, worker: RayTrainWorker) -> None:
-    while True:
-        try:
-            data = conn.recv_bytes()
-        except (EOFError, OSError):
-            return  # the trainer process is gone
-        seq = None
-        try:
-            msg = pickle.loads(data)
-            if msg is None:
-                return
-            seq, method, args, kwargs = msg
-            reply = (seq, "ok", getattr(worker, method)(*args, **kwargs))
-            data = pickle.dumps(reply)
-        except Exception:  # noqa: BLE001 — reported to the trainer
-            data = pickle.dumps((seq, "err", traceback.format_exc()))
-        conn.send_bytes(data)
+        procs.take_card(rank)
+    procs.serve(conn, lambda: RayTrainWorker(
+        rank if device_type == "cuda" else None))
 
 
 def dumps(what: str, obj: Any) -> bytes:
     """``obj`` pickled for a worker; a function that plain pickle cannot
     send by reference raises here, in the trainer process, saying
     why."""
-    try:
-        return pickle.dumps(obj)
-    except (pickle.PicklingError, AttributeError, TypeError) as e:
-        raise TypeError(
-            f"{what} cannot be sent to the train worker processes ({e}). "
-            "Functions go by pickle, by reference: define the train loop "
-            "and any function it is given at module level, not inside a "
-            "function or as a lambda") from e
+    return procs.dumps(obj, what, "train worker processes",
+                       "define the train loop and any function it is given "
+                       "at module level, not inside a function or as a "
+                       "lambda")
 
 
-class _WorkerProcess:
+def _encode(msg: Tuple) -> bytes:
+    return dumps(msg[1], msg)
+
+
+class _WorkerProcess(procs.Worker):
     """The trainer process's handle on one worker process."""
 
     def __init__(self, ctx, rank: int, device_type: str):
+        super().__init__(ctx, _worker_main, (rank, device_type),
+                         f"rtpu-train-worker-{rank}", encode=_encode)
         self.rank = rank
-        self.conn, child = ctx.Pipe()
-        self.proc = ctx.Process(target=_worker_main,
-                                args=(child, rank, device_type),
-                                name=f"rtpu-train-worker-{rank}")
-        self.proc.start()
-        child.close()
-        self.seq = 0
-
-    def send(self, method: str, args: Sequence, kwargs: Dict) -> int:
-        self.seq += 1
-        self.conn.send_bytes(dumps(method, (self.seq, method, tuple(args),
-                                            kwargs)))
-        return self.seq
-
-    def exitcode(self) -> Optional[int]:
-        self.proc.join(timeout=1.0)
-        return self.proc.exitcode
 
 
 @dataclass
@@ -268,19 +220,19 @@ class WorkerGroup:
         self.workers: List[WorkerMetadata] = []
         t0 = time.perf_counter()
         ctx = multiprocessing.get_context("spawn")
-        procs: List[_WorkerProcess] = []
+        started: List[_WorkerProcess] = []
         try:
             for rank in range(num_workers):
-                procs.append(_WorkerProcess(ctx, rank, self.device_type))
+                started.append(_WorkerProcess(ctx, rank, self.device_type))
             self.workers = [WorkerMetadata(process=p, node_id="",
                                            world_rank=p.rank,
                                            local_rank=p.rank, node_rank=0)
-                            for p in procs]
+                            for p in started]
             for m, node in zip(self.workers, self.foreach("node_id")):
                 m.node_id = node
         except BaseException:
             self.workers = [WorkerMetadata(process=p, node_id="")
-                            for p in procs]
+                            for p in started]
             self.shutdown()
             raise
         # Spawn to every worker answering: interpreter, imports, card.
@@ -321,33 +273,23 @@ class WorkerGroup:
         pending = dict(seqs)
         results: Dict[int, Any] = {}
         deadline = None if timeout is None else time.monotonic() + timeout
-        by_conn = {self.workers[r].process.conn: r for r in pending}
-        by_sentinel = {m.process.proc.sentinel: m.world_rank
-                       for m in self.workers}
+        workers = [m.process for m in self.workers]
         while pending:
             left = None if deadline is None else deadline - time.monotonic()
             if left is not None and left <= 0:
                 raise TimeoutError(f"{method}: ranks {sorted(pending)} did "
                                    f"not answer in {timeout} s")
-            ready = mpc.wait(list(by_conn) + list(by_sentinel), left)
-            for obj in ready:
-                r = by_conn.get(obj)
-                if r is None or r not in pending:
+            replies, dead = procs.wait(workers, left)
+            for w, seq, status, value in replies:
+                if pending.get(w.rank) != seq:
                     continue
-                try:
-                    seq, status, value = pickle.loads(obj.recv_bytes())
-                except (EOFError, OSError):
-                    continue  # died: its sentinel says so below
-                if seq != pending[r]:
-                    continue
-                del pending[r]
+                del pending[w.rank]
                 if status == "err":
-                    raise WorkerError(r, method, value)
-                results[r] = value
-            dead = sorted(by_sentinel[o] for o in ready if o in by_sentinel)
+                    raise WorkerError(w.rank, method, value)
+                results[w.rank] = value
             if dead:
-                raise WorkerDiedError(dead[0],
-                                      self.workers[dead[0]].process.exitcode())
+                w = min(dead, key=lambda w: w.rank)
+                raise WorkerDiedError(w.rank, w.exitcode())
         return results
 
     # -------------------------------------------------------------- shutdown
@@ -355,24 +297,7 @@ class WorkerGroup:
     def shutdown(self) -> None:
         """Ask every worker to leave; join each with a bounded timeout,
         then terminate it, then kill it. No process is left behind."""
-        for m in self.workers:
-            try:
-                m.process.conn.send_bytes(pickle.dumps(None))
-            except (OSError, ValueError):
-                pass  # already gone
-        deadline = time.monotonic() + JOIN_TIMEOUT_S
-        for m in self.workers:
-            m.process.proc.join(max(0.0, deadline - time.monotonic()))
-        for m in self.workers:
-            p = m.process.proc
-            if p.is_alive():
-                p.terminate()
-                p.join(TERMINATE_TIMEOUT_S)
-            if p.is_alive():
-                p.kill()
-                p.join()
-            p.close()
-            m.process.conn.close()
+        procs.stop(m.process for m in self.workers)
         self.workers = []
 
     def __len__(self) -> int:

@@ -1,8 +1,8 @@
 """The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor any
 module of the JAX package (nor gymnasium, but inside the functions that
 build a gymnasium env, nor cloudpickle, which the card's machine lacks),
-also inside a spawned train worker, and its entry points refuse to fall
-back to the CPU on their own."""
+also inside a spawned train worker or data pool worker, and its entry
+points refuse to fall back to the CPU on their own."""
 import pathlib
 import re
 import subprocess
@@ -58,8 +58,12 @@ def test_package_imports_without_jax_or_ray_tpu():
             lines["NAMES"].split())
     assert {"ray_tpu_torch.train." + m for m in TRAIN_MODULES} | {
         "ray_tpu_torch.util.collective"} <= set(lines["NAMES"].split())
+    assert {"ray_tpu_torch.data." + m for m in DATA_MODULES} | {
+        "ray_tpu_torch.util.procs"} <= set(lines["NAMES"].split())
 
 
+DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
+                "executor", "dataset", "iterator", "preprocessors")
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
                  "worker_group", "backend", "backend_executor",
                  "data_parallel_trainer", "predictor")
@@ -110,6 +114,88 @@ def test_train_worker_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WORKER []" in proc.stdout.splitlines(), proc.stdout
     assert "DRIVER []" in proc.stdout.splitlines(), proc.stdout
+
+
+_POOL_SCRIPT = r"""
+import sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+
+
+class Leaked:
+    def __call__(self, batch):
+        import importlib
+
+        for name in {names!r}:
+            importlib.import_module(name)
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                        and sys.modules[m] is not None)
+        return {{"id": batch["id"], "leaked": [" ".join(leaked)] * len(batch["id"])}}
+
+
+if __name__ == "__main__":
+    import ray_tpu_torch.data as rd
+
+    rows = rd.range(4, parallelism=2).map_batches(Leaked,
+                                                  concurrency=1).take_all()
+    print("WORKER", sorted({{str(r["leaked"]) for r in rows}}))
+"""
+
+
+def test_pool_worker_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
+    """A data pool worker imports the data layer and the predictors with
+    jax, the JAX package and cloudpickle blocked, and imports none of
+    them."""
+    names = ["ray_tpu_torch.data." + m for m in DATA_MODULES] + [
+        "ray_tpu_torch.train.predictor"]
+    script = tmp_path / "pool_imports.py"
+    script.write_text(_POOL_SCRIPT.format(repo=str(REPO), names=names))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "WORKER ['']" in proc.stdout.splitlines(), proc.stdout
+
+
+def test_data_entry_points_refuse_without_cuda_before_any_spawn(
+        monkeypatch):
+    """iter_device_batches, map_batches(num_gpus=1) and BatchPredictor
+    take the card unless the caller asks for the CPU: with no CUDA, or
+    with fewer cards than workers, they raise before a worker is
+    spawned."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.data import executor
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint, TorchPredictor
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a worker was spawned")
+
+    class Udf:  # never pickled: the refusals come first
+        pass
+
+    monkeypatch.setattr(executor, "_Slot", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = rd.range(8, parallelism=2)
+    ckpt = Checkpoint("/nonexistent")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ds.iter_device_batches(batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ds.map_batches(Udf, num_gpus=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchPredictor(ckpt, TorchPredictor).predict(ds)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 pool workers need 2 cards, 1 "
+                                         "visible"):
+        BatchPredictor(ckpt, TorchPredictor).predict(
+            ds, max_scoring_workers=2)
+    with pytest.raises(ValueError, match="num_gpus is 0 or 1"):
+        ds.map_batches(Udf, num_gpus=2)
+    # Asked for the CPU, the pool reaches the spawn.
+    with pytest.raises(AssertionError, match="a worker was spawned"):
+        BatchPredictor(ckpt, TorchPredictor, device="cpu").predict(
+            ds, num_gpus_per_actor=0).take_all()
 
 
 def test_sources_name_no_jax_or_ray_tpu():

@@ -227,3 +227,49 @@ def test_flash_backward_kernels_refuse_what_they_do_not_take():
     qb = q.bfloat16()
     with pytest.raises(TypeError, match="float32"):
         tfa.flash_bwd_dkv(qb, qb, qb, qb, lse.bfloat16(), lse, 0.1, True)
+
+
+def test_device_batch_stream_pinned_ring_is_exact_and_never_overwritten():
+    """``device_batch_stream``'s ring of pinned buffers (2 batches ahead,
+    3 buffers): every batch reaches the card bit for bit and in order,
+    also while the consumer holds the batches it was given, runs work on
+    them on its own stream, and is slow enough that the producer waits on
+    the ring; a batch of another shape reallocates its buffer."""
+    from ray_tpu_torch.data.iterator import device_batch_stream
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    batches = [{"x": rng.standard_normal((64, 197, 33)).astype(np.float32),
+                "id": np.arange(i * 64, (i + 1) * 64)} for i in range(12)]
+    batches.append({"x": rng.standard_normal((5, 3)).astype(np.float32),
+                    "id": np.arange(5)})
+    held = []
+    for i, got in enumerate(device_batch_stream(iter(batches), dev, 2)):
+        assert got["x"].device.type == "cuda"
+        # Work queued on the consumer's stream behind the copy's event.
+        held.append({k: v * 1 for k, v in got.items()})
+        torch.cuda._sleep(20_000_000)  # the producer runs ahead meanwhile
+    torch.cuda.synchronize()
+    assert len(held) == len(batches)
+    for got, want in zip(held, batches):
+        np.testing.assert_array_equal(got["x"].cpu().numpy(), want["x"])
+        np.testing.assert_array_equal(got["id"].cpu().numpy(), want["id"])
+
+
+def test_device_batch_stream_stops_when_dropped():
+    """A consumer that leaves early stops the producer thread."""
+    import threading
+
+    from ray_tpu_torch.data.iterator import device_batch_stream
+
+    dev = _card()
+
+    def endless():
+        while True:
+            yield {"x": np.ones((8, 8), np.float32)}
+
+    stream = device_batch_stream(endless(), dev, 2)
+    next(stream)
+    stream.close()
+    assert not any(t.name == "device-prefetch" and t.is_alive()
+                   for t in threading.enumerate())

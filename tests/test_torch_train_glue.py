@@ -599,6 +599,26 @@ def test_train_thread_takes_the_workers_card(monkeypatch):
         _shutdown_session()
 
 
+def test_profile_exit_swallows_stop_profile_errors(tmp_path):
+    """C7: as the reference's, ``session.profile``'s exit swallows what
+    ``stop_profile`` raises: a body that stopped the trace itself returns
+    normally, and a body that raises still raises its own exception."""
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.session import TrainContext, _init_session
+
+    _init_session(TrainContext(world_size=1, world_rank=0))
+    try:
+        with session.profile(str(tmp_path / "a")):
+            session.stop_profile()
+        assert os.listdir(tmp_path / "a") == ["trace_rank0.json"]
+        with pytest.raises(KeyError, match="the body's own"):
+            with session.profile(str(tmp_path / "b")):
+                session.stop_profile()
+                raise KeyError("the body's own")
+    finally:
+        session._shutdown_session()
+
+
 def test_checkpoint_dict_and_directory_round_trip(tmp_path):
     data = {"w": np.arange(6.0).reshape(2, 3), "step": 4, "tag": "x"}
     ckpt = Checkpoint.from_dict(data)
