@@ -175,10 +175,12 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 11. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
-   the port: device time on contiguous copies, each backend that takes
-   them pinned in turn, the fastest reported) and their bounds; and K1,
-   K2 and K3 without a mask on the ring's 2048-token chunk; K1 at ViT-L's
-   shape (64, 197, 16/16, 64, no mask).
+   the port: on contiguous copies, each backend that takes them pinned
+   in turn, the fastest reported) and their bounds; and K1, K2 and K3
+   without a mask on the ring's 2048-token chunk; K1 at ViT-L's shape
+   (64, 197, 16/16, 64, no mask). Device times come from CUDA events with
+   the card held while the host queues the calls (``held_ms``), each at
+   least the least time the card could take for its work.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. A
 failed phase raises: the script exits non-zero and prints no result line.
@@ -287,6 +289,30 @@ DATA_MULTI_REL_L2 = 1e-5
 # 256 envs, fragment 32 (train batch 8192), minibatch 1024, 2 epochs.
 PPO_ENVS, PPO_FRAGMENT, PPO_MINIBATCH, PPO_EPOCHS = 256, 32, 1024, 2
 PPO_TIMED_ITERS = 3
+# ppo_remote: the same batch from PPO_RUNNERS CPU runner processes of
+# PPO_RUNNER_ENVS envs (one torch thread each, as the reference's
+# num_cpus=1 runner), the learner in a learner process on the card. A
+# learner process built by the same factory, with cuDNN held to its
+# deterministic algorithms there and in this process (for the check only),
+# updates one batch (PPO_CHECK_STEPS minibatches) from the run's state,
+# and PPO_REMOTE_CHECK_RUNS in-process learners do the same: the process's
+# parameter change and update metrics must lie within the largest gap
+# between two in-process runs, which is zero where the arithmetic is
+# deterministic. An in-process update that skips the last minibatch is read
+# too and must lie beyond that gap. (cuDNN's default f32 weight gradient is
+# not deterministic on the H100: in-process runs read 9.4e-7-1.1e-5 apart
+# and once 5.4e-4; PERF.md section 6.)
+PPO_RUNNERS, PPO_RUNNER_ENVS = 4, 64
+PPO_REMOTE_CHECK_RUNS = 3
+# impala_async: IMPALA on IMPALA_RUNNERS CPU runner processes of
+# IMPALA_ENVS CartPoleBatchedEnv columns, a sample of IMPALA_FRAGMENT
+# steps a column, IMPALA_UPDATES updates a step, the weights to the whole
+# fleet after every update; IMPALA_STEPS steps (the first a warm-up),
+# runner 0 killed with its sample in flight before step IMPALA_KILL_AT;
+# then APPO for APPO_STEPS steps.
+IMPALA_RUNNERS, IMPALA_ENVS, IMPALA_FRAGMENT = 4, 64, 50
+IMPALA_UPDATES, IMPALA_BROADCAST = 4, 1
+IMPALA_STEPS, IMPALA_KILL_AT, APPO_STEPS = 5, 3, 2
 # The card's policy logits against the same params on the CPU: both f32
 # (TF32 off), other summation orders.
 PPO_POLICY_REL_L2 = 1e-4
@@ -801,23 +827,50 @@ def phase_prefill_time(cfg, params, prompts, device):
     emit("prefill_time", model="llama3_8b", rows=rows)
 
 
-def _device_profile(fn):
-    """Run ``fn`` under torch.profiler; returns (device busy ms, every
-    kernel and copy as [name, ms], by device time). The spans that
-    annotations such as ``Optimizer.step`` lay over the device's timeline
-    are left out: they cover the kernels in them and idle time too."""
+# In one process torch.profiler loses kernel records, more the older the
+# process: without a preface, the first 2 of 20 K1 launches at 45 s, all 20
+# from 285 s, idle or not (tools/profiler_probe.py; PERF.md section 6).
+# Each profile therefore opens with PROFILE_PREFACE spin kernels of
+# PROFILE_SPIN_CYCLES cycles (about 24 ms on the H100), left out of its
+# sums: they take most of the loss (all 20 K1 records kept to 435 s), not
+# all of it, so kernel times come from CUDA events (device_ms).
+PROFILE_PREFACE, PROFILE_SPIN_CYCLES = 400, 100_000
+
+
+@contextlib.contextmanager
+def _profiled():
+    """A torch.profiler window over the block, opened by the preface, the
+    card's work in it finished."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PROFILE_PREFACE):
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+        yield prof
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
+
+
+def _device_kernels(prof):
+    """The kernels and copies of a profile, its preface left out (and the
+    spans that annotations such as ``Optimizer.step`` lay over the device's
+    timeline: they cover the kernels in them and idle time too)."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and "spin_kernel" not in e.key]
+
+
+def _device_profile(fn):
+    """Run ``fn`` under torch.profiler; returns (device busy ms, every
+    kernel and copy as [name, ms], by device time)."""
+    with _profiled() as prof:
+        fn()
+    kernels = sorted(_device_kernels(prof),
+                     key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     return busy_us / 1e3, [[e.key[:80], e.self_device_time_total / 1e3]
                            for e in kernels]
@@ -2233,6 +2286,9 @@ def phase_ppo_train(device):
         algo.stop()
     if failures:
         raise AssertionError("; ".join(failures))
+    return {"iter_ms": iter_s * 1e3, "env_steps_per_s": batch / iter_s,
+            "sample_env_steps_per_s": batch * PPO_TIMED_ITERS / sample_s,
+            "sample_share": sample_s / wall, "learn_share": learn_s / wall}
 
 
 @contextlib.contextmanager
@@ -2322,6 +2378,376 @@ def _ppo_learner_check(algo, learner, device):
         tf32 = change(device)
     return (change_rel_l2(f32[0], want[0]), change_rel_l2(tf32[0], want[0]),
             change_rel_l2(f32[1], want[1]), f32[2])
+
+
+def _delta(after, before, n=1):
+    """``(after - before) / n`` per number of two meters (nested dicts
+    too)."""
+    return {k: (_delta(v, before.get(k, {}), n) if isinstance(v, dict)
+                else (v - before.get(k, 0.0)) / n)
+            for k, v in after.items() if isinstance(v, (dict, float, int))}
+
+
+def _worst_change_rel(got, want, start):
+    """The worst relative L2 per leaf between two parameter changes from
+    ``start`` (numpy trees)."""
+    import torch
+
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+
+    s = tree_leaves(start)
+    return change_rel_l2(
+        [torch.from_numpy(a - b) for a, b in zip(tree_leaves(got), s)],
+        [torch.from_numpy(a - b) for a, b in zip(tree_leaves(want), s)])
+
+
+class DeterministicConvs:
+    """A learner factory: ``factory``'s learner, built after cuDNN is held
+    to its deterministic algorithms in the process (picklable: it reaches
+    a learner process)."""
+
+    def __init__(self, factory):
+        self.factory = factory
+
+    def __call__(self):
+        import torch
+
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        return self.factory()
+
+
+def _remote_learner_check(algo, device, deterministic=True):
+    """A learner process's update of one fixed on-policy batch
+    (PPO_CHECK_STEPS minibatches, shuffle off) from the run's learner
+    state, against PPO_REMOTE_CHECK_RUNS updates by learners in this
+    process, all from the algorithm's learner factory with cuDNN's
+    deterministic algorithms (its defaults with ``deterministic`` false),
+    and against one in-process update that skips the last minibatch.
+    Returns the worst relative L2 per leaf of the parameter change and the
+    largest relative difference of an update metric (relative to the
+    larger of the value and 1e-3), each as {"process": to the nearest
+    in-process run, "in_process": the largest gap between two in-process
+    runs, "skipped_minibatch": the planted fault's}."""
+    import torch
+
+    from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.utils.rollout import fragments_to_ppo_batch
+
+    cfg = algo._algo_config
+    state = algo.learner_group.get_state()
+    algo.env_runner_group.sync_weights(state["params"])
+    frags = algo.env_runner_group.sample_fragments(PPO_FRAGMENT)
+    batch = fragments_to_ppo_batch(frags, gamma=cfg.gamma, lam=cfg.lambda_)
+    rows = PPO_CHECK_MINIBATCH * PPO_CHECK_STEPS
+    batch = {k: v[:rows] for k, v in batch.items()}
+    factory = algo._learner_factory()
+    group = LearnerGroup(DeterministicConvs(factory) if deterministic
+                         else factory, num_learners=1, device=device)
+    try:
+        group.set_state(state)
+        remote = (group.update(batch, minibatch_size=PPO_CHECK_MINIBATCH,
+                               shuffle=False), group.get_weights())
+    finally:
+        group.shutdown()
+    cudnn = torch.backends.cudnn
+    local = []
+    with cudnn.flags(enabled=cudnn.enabled,
+                     benchmark=cudnn.benchmark and not deterministic,
+                     deterministic=deterministic or cudnn.deterministic,
+                     allow_tf32=cudnn.allow_tf32):
+        for n in [rows] * PPO_REMOTE_CHECK_RUNS + [
+                rows - PPO_CHECK_MINIBATCH]:
+            other = factory()
+            other.set_state(state)
+            metrics = other.update({k: v[:n] for k, v in batch.items()},
+                                   minibatch_size=PPO_CHECK_MINIBATCH,
+                                   shuffle=False)
+            local.append((metrics, other.get_weights()))
+            del other
+    *runs, skipped = local
+    start = state["params"]
+
+    def gaps(a, b):
+        return (_worst_change_rel(a[1], b[1], start),
+                max(abs(a[0][k] - v) / max(abs(v), 1e-3)
+                    for k, v in b[0].items()))
+
+    pairs = [gaps(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    near = [gaps(remote, b) for b in runs]
+    out = {"process": [min(g[j] for g in near) for j in (0, 1)],
+           "in_process": [max(g[j] for g in pairs) for j in (0, 1)],
+           "skipped_minibatch": list(gaps(skipped, runs[0]))}
+    return ({k: v[0] for k, v in out.items()},
+            {k: v[1] for k, v in out.items()})
+
+
+def _card_runner_check(weights):
+    """One card runner process (``runner_resources={"num_gpus": 1}``,
+    PPO_ENVS envs) against the in-process card runner with the same
+    worker index, seed and weights: the keys whose fragments differ (none
+    expected) and the runner process's device."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithm import ModuleFactory
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+    from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
+    from ray_tpu_torch.rllib.env.vector_env import CnnRolloutBenchEnv
+
+    creator = batched_creator(CnnRolloutBenchEnv)
+    module = ModuleFactory(creator, {})
+    group = EnvRunnerGroup(creator, module, num_runners=1,
+                           num_envs_per_runner=PPO_ENVS, seed=SEED,
+                           runner_resources={"num_gpus": 1})
+    try:
+        ref = SingleAgentEnvRunner(creator, module, num_envs=PPO_ENVS,
+                                   seed=SEED, worker_index=1, device="cuda")
+        ref.set_weights(weights)
+        group.sync_weights(weights)
+        got = group.sample_fragments(PPO_FRAGMENT)
+        want = ref.sample_fragment(PPO_FRAGMENT)
+        info = group.manager.foreach_actor("process_info")
+        differ = (["the runner process failed"] if len(got) != 1 else
+                  [k for k in want if not np.array_equal(
+                      np.asarray(got[0][k]), np.asarray(want[k]))])
+        device = info[0][1]["device"] if info else None
+    finally:
+        group.stop()
+    return differ, device
+
+
+def phase_ppo_remote(device, in_process):
+    """BASELINE config 4 at its shape on the fleet: PPO, the Nature CNN on
+    CnnRolloutBenchEnv, PPO_RUNNERS CPU runner processes of PPO_RUNNER_ENVS
+    envs, the learner in a learner process on the card."""
+    import multiprocessing
+    import os
+    import signal
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.core.learner import tree_leaves
+    from ray_tpu_torch.rllib.env.vector_env import CnnRolloutBenchEnv
+
+    batch = PPO_RUNNERS * PPO_RUNNER_ENVS * PPO_FRAGMENT
+    t0 = time.perf_counter()
+    algo = (PPOConfig()
+            .environment(env_creator=batched_creator(CnnRolloutBenchEnv))
+            .env_runners(num_env_runners=PPO_RUNNERS,
+                         num_envs_per_env_runner=PPO_RUNNER_ENVS,
+                         rollout_fragment_length=PPO_FRAGMENT)
+            .learners(num_learners=1)
+            .training(train_batch_size=batch, minibatch_size=PPO_MINIBATCH,
+                      num_epochs=PPO_EPOCHS)
+            .debugging(seed=SEED).build())
+    build_s = time.perf_counter() - t0
+    failures = []
+    try:
+        manager = algo.env_runner_group.manager
+        learner = algo.learner_group.actor
+        before = algo.learner_group.get_weights()
+        results = [algo.train()]  # warm-up: the runners' spawn and CUDA's
+        info0 = dict(manager.foreach_actor("process_info"))
+        linfo0 = learner.call("process_info")
+        io0, lio0 = manager.io(), learner.io()
+        t0 = time.perf_counter()
+        results += [algo.train() for _ in range(PPO_TIMED_ITERS)]
+        wall = time.perf_counter() - t0
+        info = dict(manager.foreach_actor("process_info"))
+        linfo = learner.call("process_info")
+        io, lio = manager.io(), learner.io()
+        after = algo.learner_group.get_weights()
+        spawn_s = [manager.actor(i).spawn_s for i in sorted(info)] + [
+            learner.spawn_s]
+        for r in results:
+            if r["env_steps_this_iter"] != batch or not (
+                    np.isfinite(r["total_loss"]) and r["grad_norm"] > 0):
+                failures.append(
+                    f"iteration {r['training_iteration']}: "
+                    f"{r['env_steps_this_iter']} env steps (not {batch}), "
+                    f"loss {r['total_loss']}, grad_norm {r['grad_norm']}")
+        if all(np.array_equal(a, b) for a, b in zip(tree_leaves(before),
+                                                     tree_leaves(after))):
+            failures.append("the learner's weights did not change")
+        if not str(linfo["device"]).startswith("cuda"):
+            failures.append(f"the learner process on {linfo['device']}")
+        if sorted(info) != list(range(PPO_RUNNERS)) or any(
+                i["device"] != "cpu" or i["cuda_initialized"]
+                or i["num_threads"] != 1 for i in info.values()):
+            failures.append(f"runners: {info}")
+        change_gap, metric_gap = _remote_learner_check(algo, device)
+        for what, gap in (("parameter change", change_gap),
+                          ("update metrics", metric_gap)):
+            if not (gap["process"] <= gap["in_process"]
+                    < gap["skipped_minibatch"]):
+                failures.append(
+                    f"learner process update vs in-process, {what}: "
+                    f"{gap['process']} (in-process runs apart by at most "
+                    f"{gap['in_process']}; one minibatch skipped "
+                    f"{gap['skipped_minibatch']})")
+        # A runner killed between iterations: the next iteration samples
+        # on the 3 others, and the one after on all 4 again.
+        os.kill(manager.actor(0).pid, signal.SIGKILL)
+        manager.actor(0).proc.join(10)
+        t1 = time.perf_counter()
+        killed = [algo.train() for _ in range(2)]
+        recovery_s = time.perf_counter() - t1
+        counts = [r["env_steps_this_iter"] for r in killed]
+        want = [batch - PPO_RUNNER_ENVS * PPO_FRAGMENT, batch]
+        healthy = manager.healthy_actor_ids()
+        if counts != want or healthy != list(range(PPO_RUNNERS)):
+            failures.append(f"after a runner's death: {counts} env steps "
+                            f"(not {want}), healthy {healthy}")
+        spawn_s.append(manager.actor(0).spawn_s)
+        weights = algo.learner_group.get_weights()
+    finally:
+        algo.stop()
+    _no_workers_left(failures, "ppo_remote's stop()")
+    differ, card_runner = _card_runner_check(weights)
+    if differ or not str(card_runner).startswith("cuda"):
+        failures.append(f"card runner process on {card_runner}: fragment "
+                        f"columns {differ} differ from the in-process "
+                        "runner's")
+    _no_workers_left(failures, "the card runner's stop()")
+    timed = results[1:]
+    sample_s = sum(r["sample_time_s"] for r in timed)
+    learn_s = sum(r["learn_time_s"] for r in timed)
+    iter_s = wall / PPO_TIMED_ITERS
+    n = PPO_TIMED_ITERS
+    runner_sample_s = {i: _delta(info[i], info0[i], n)["call_s"].get(
+        "sample_fragment", 0.0) for i in sorted(info)}
+    emit("ppo_remote", ok=not failures, failures=failures,
+         module="CNNModule (NATURE_CONV, hidden 512)",
+         env="CnnRolloutBenchEnv", obs=[84, 84, 4], runners=PPO_RUNNERS,
+         envs_per_runner=PPO_RUNNER_ENVS, fragment=PPO_FRAGMENT,
+         train_batch=batch, minibatch=PPO_MINIBATCH, epochs=PPO_EPOCHS,
+         devices={"runners": "cpu (1 thread each)",
+                  "learner": linfo["device"]},
+         results=[{k: r[k] for k in (
+             "training_iteration", "total_loss", "grad_norm",
+             "env_steps_this_iter", "sample_time_s", "learn_time_s",
+             "time_this_iter_s")} for r in results + killed],
+         iter_ms=iter_s * 1e3, env_steps_per_s=batch / iter_s,
+         sample_env_steps_per_s=batch * PPO_TIMED_ITERS / sample_s,
+         sample_share=sample_s / wall, learn_share=learn_s / wall,
+         sample_s_per_iter=sample_s / n, learn_s_per_iter=learn_s / n,
+         rest_s_per_iter=(wall - sample_s - learn_s) / n,
+         runner_sample_s_per_iter=runner_sample_s,
+         moving_s_per_iter={
+             "driver_runners": _delta(io, io0, n),
+             "runners_send": {i: _delta(info[i], info0[i], n)["send_s"]
+                              for i in sorted(info)},
+             "driver_learner": _delta(lio, lio0, n),
+             "learner_recv": _delta(linfo, linfo0, n)["recv_s"]},
+         learner_update_s_per_iter=_delta(linfo, linfo0, n)["call_s"].get(
+             "update", 0.0),
+         build_s=build_s, spawn_s=spawn_s, slowest_spawn_s=max(
+             s for s in spawn_s if s is not None),
+         recovery_counts=counts, recovery_s=recovery_s,
+         learner_check={"change_rel_l2": change_gap,
+                        "metrics_rel": metric_gap,
+                        "cudnn": "deterministic"},
+         card_runner={"device": card_runner, "differing_columns": differ},
+         cpu_count=os.cpu_count(), in_process=in_process,
+         profile="not measured (the learner runs in another process)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_impala_async(device):
+    """IMPALA's asynchronous sampling on IMPALA_RUNNERS CPU runner
+    processes of IMPALA_ENVS CartPoleBatchedEnv columns, the learner on
+    the card in this process; then APPO."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithms.appo import APPOConfig
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALAConfig
+    from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+
+    def build(config):
+        return (config.environment(
+            env_creator=batched_creator(CartPoleBatchedEnv))
+            .env_runners(num_env_runners=IMPALA_RUNNERS,
+                         num_envs_per_env_runner=IMPALA_ENVS,
+                         rollout_fragment_length=IMPALA_FRAGMENT)
+            .training(broadcast_interval=IMPALA_BROADCAST,
+                      updates_per_step=IMPALA_UPDATES)
+            .debugging(seed=SEED).build())
+
+    failures = []
+    algo = build(IMPALAConfig())
+    try:
+        manager = algo.env_runner_group.manager
+        results, walls, restored = [], [], None
+        for step in range(IMPALA_STEPS):
+            if step == IMPALA_KILL_AT:
+                if 0 not in {t.actor_id for t in algo._inflight}:
+                    failures.append("runner 0 had no sample in flight")
+                os.kill(manager.actor(0).pid, signal.SIGKILL)
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+        restored = (manager.num_restarts(0), manager.healthy_actor_ids(),
+                    sorted({t.actor_id for t in algo._inflight}))
+        if restored != (1, list(range(IMPALA_RUNNERS)),
+                        list(range(IMPALA_RUNNERS))):
+            failures.append(f"after runner 0's death (restarts, healthy, "
+                            f"armed): {restored}")
+        learner_device = str(algo.learner_group.learner.device)
+    finally:
+        algo.stop()
+    for r in results:
+        if r["num_updates"] != IMPALA_UPDATES or not (
+                r["max_runner_lag"] <= IMPALA_BROADCAST
+                and np.isfinite(r["total_loss"])):
+            failures.append(f"step {r['training_iteration']}: "
+                            f"{r['num_updates']} updates, runner lag "
+                            f"{r['max_runner_lag']}, loss {r['total_loss']}")
+    if not learner_device.startswith("cuda"):
+        failures.append(f"learner on {learner_device}")
+    appo = build(APPOConfig())
+    try:
+        appo_results = [appo.train() for _ in range(APPO_STEPS)]
+    finally:
+        appo.stop()
+    last = appo_results[-1]
+    if not (np.isfinite(last["kl"]) and 0.2 < last["mean_ratio"] < 5.0
+            and all(r["num_updates"] == IMPALA_UPDATES
+                    for r in appo_results)):
+        failures.append(f"APPO: kl {last['kl']}, mean_ratio "
+                        f"{last['mean_ratio']}")
+    _no_workers_left(failures, "impala_async's stop()")
+
+    def rates(steps):
+        wall = sum(walls[i] for i in steps)
+        return {"updates_per_s": sum(results[i]["num_updates"]
+                                     for i in steps) / wall,
+                "env_steps_per_s": sum(results[i]["env_steps_this_iter"]
+                                       for i in steps) / wall,
+                "step_ms": wall * 1e3 / len(steps)}
+
+    emit("impala_async", ok=not failures, failures=failures,
+         env="CartPoleBatchedEnv", runners=IMPALA_RUNNERS,
+         envs_per_runner=IMPALA_ENVS, fragment=IMPALA_FRAGMENT,
+         sample_steps=IMPALA_FRAGMENT * IMPALA_ENVS,
+         updates_per_step=IMPALA_UPDATES,
+         broadcast_interval=IMPALA_BROADCAST, learner=learner_device,
+         results=[{k: r[k] for k in (
+             "training_iteration", "num_updates", "env_steps_this_iter",
+             "max_runner_lag", "max_sample_lag", "learn_time_s",
+             "step_time_s", "total_loss")} for r in results],
+         steady=rates(range(1, IMPALA_KILL_AT)),
+         with_restart=rates(range(IMPALA_KILL_AT, IMPALA_STEPS)),
+         restored=restored,
+         appo=[{k: r[k] for k in ("num_updates", "kl", "mean_ratio",
+                                  "total_loss", "env_steps_this_iter")}
+               for r in appo_results])
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 class PendulumBatchedEnv:
@@ -2452,11 +2878,11 @@ class TwoAgentEnv:
 
 
 def batched_creator(cls, **kw):
-    """An ``env_creator`` that builds a whole BatchedEnv of ``n`` columns."""
-    def creator(n):
-        return cls(n, seed=SEED, **kw)
-    creator.makes_batched_env = True
-    return creator
+    """An ``env_creator`` that builds a whole BatchedEnv of ``n`` columns
+    (picklable: it reaches runner processes)."""
+    from ray_tpu_torch.rllib.env.vector_env import BatchedCreator
+
+    return BatchedCreator(cls, seed=SEED, **kw)
 
 
 def change_rel_l2(got, want) -> float:
@@ -3391,26 +3817,61 @@ def bwd_bound(B, S, H, KVH, D, causal, products, writes_q):
     return t_bytes * 1e3, "bytes"
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn``: the kernel time torch.profiler records
-    over ``iters`` calls, without the host's gaps between them. A profile
-    that records no device time at all (once in about ten runs on the
-    H100, for an SDPA call) is taken again, up to three times."""
+def held_ms(fn, iters: int, hold_cycles: float = 1e8) -> dict:
+    """Device time of ``fn`` a call without the host's gaps, from CUDA
+    events alone: a spin kernel (``hold_cycles`` clock cycles) holds the
+    card while the host queues ``iters`` calls after it, so they run back
+    to back. Returns that time (``device_ms``), the hold's time and the
+    host's time to queue the calls (``hold_ms``, ``queue_ms``): the
+    calls ran back to back only where the queueing ended first."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(int(hold_cycles))
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_ms = (time.perf_counter() - t) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {"device_ms": ev[1].elapsed_time(ev[2]) / iters,
+            "hold_ms": ev[0].elapsed_time(ev[1]), "queue_ms": queue_ms}
+
+
+def device_ms(fn, iters: int, floor_ms: float, what: str) -> float:
+    """Mean device time of ``fn`` without the host's gaps
+    (:func:`held_ms`), at least ``floor_ms`` (the least the card could take
+    for the work). Where the host had not queued the calls before the hold
+    ended, the hold is made four times longer, up to three times; then, or
+    below the floor, this raises, naming ``what``."""
     fn()  # warm
+    cycles = 1e8
     for _ in range(3):
-        busy, _ = _device_profile(lambda: [fn() for _ in range(iters)])
-        if busy:
-            return busy / iters
-    raise RuntimeError("torch.profiler recorded no device time")
+        got = held_ms(fn, iters, cycles)
+        if got["queue_ms"] < got["hold_ms"]:
+            break
+        cycles *= 4
+    else:
+        raise RuntimeError(f"{what}: the host queued {iters} calls in "
+                           f"{got['queue_ms']} ms, past the hold "
+                           f"({got['hold_ms']} ms)")
+    if got["device_ms"] < floor_ms:
+        raise RuntimeError(f"{what}: {got['device_ms']} ms a call, under the "
+                           f"least the card could take ({floor_ms} ms)")
+    return got["device_ms"]
 
 
-def sdpa_times(q, k, v, scale, do=None, iters=20, causal=True):
+def sdpa_times(q, k, v, scale, floor_ms, do=None, iters=20, causal=True):
     """The library yardstick: ``F.scaled_dot_product_attention`` on
     contiguous [B, H, S, D] copies of q/k/v, pinned in turn to each backend
     that takes them; with ``do``, its backward alone on a retained graph
-    (one call computes dq, dk and dv). Device time (``device_ms``): a
-    Python autograd call is host-bound at these sizes, and its host time
-    moved 0.29-0.90 ms between calls. Returns {backend: ms}."""
+    (one call computes dq, dk and dv). Device time (``device_ms``, at
+    least ``floor_ms``): a Python autograd call is host-bound at these
+    sizes, and its host time moved 0.29-0.90 ms between calls. Returns
+    {backend: ms}."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3439,7 +3900,9 @@ def sdpa_times(q, k, v, scale, do=None, iters=20, causal=True):
         except RuntimeError:
             continue
         times[backend.name] = device_ms(
-            (lambda: bwd(out)) if grad else fwd, iters)
+            (lambda: bwd(out)) if grad else fwd, iters, floor_ms,
+            f"sdpa {backend.name} {'bwd' if grad else 'fwd'} "
+            f"{tuple(qt.shape)}")
     if not times:
         raise RuntimeError(f"no fast SDPA backend takes q {tuple(qt.shape)}, "
                            f"k {tuple(kt.shape)}")
@@ -3455,7 +3918,8 @@ def _library_fields(times):
 def phase_kernel_time(fa, device):
     # K1 at the serving shapes, then at the training one (q/k/v as views of
     # the fused wqkv projection, as the training path hands them over).
-    # ms: CUDA events over back-to-back launches; device_ms: profiler.
+    # ms: CUDA events over back-to-back launches; device_ms: the same with
+    # the card held while the host queues them (no host gaps).
     rows = []
     shapes = [(1, S, 32, 8, 128, "kv", True) for S in TIMED_SEQ]
     shapes.append((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, "qkv", True))
@@ -3478,11 +3942,16 @@ def phase_kernel_time(fa, device):
         bound_ms, bound_by = flash_bound(B, S, H, KVH, D, causal)
         rows.append({"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
                      "causal": causal, "ms": ms,
-                     "device_ms": device_ms(kernel, iters),
+                     "device_ms": device_ms(kernel, iters, bound_ms,
+                                            f"K1 {(B, S, H, KVH, D)}"),
                      "plain_ms": plain_ms,
-                     **_library_fields(sdpa_times(q, k, v, scale,
-                                                  iters=iters,
-                                                  causal=causal)),
+                     # SDPA's floor: the same products (it may write no
+                     # lse).
+                     **_library_fields(sdpa_times(
+                         q, k, v, scale,
+                         flash_flops(B, S, H, D, causal)
+                         / PEAK_BF16_FLOPS * 1e3,
+                         iters=iters, causal=causal)),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "roofline_share": bound_ms / ms})
         # Achieved rate: the operations the mask keeps over device time.
@@ -3502,8 +3971,12 @@ def phase_kernel_time(fa, device):
         args = bwd_inputs(300 + i, B, S, H, KVH, D, causal, device,
                           fused="qkv" if KVH != H else "")
         scale = D ** -0.5
-        library = _library_fields(sdpa_times(*args[:3], scale, do=args[3],
-                                             causal=causal))
+        # SDPA's floor: the 5 products dq, dk and dv need together (K2 and
+        # K3 recompute p and dp apart, 7 in all).
+        library = _library_fields(sdpa_times(
+            *args[:3], scale,
+            bwd_flops(B, S, H, D, causal, 5) / PEAK_BF16_FLOPS * 1e3,
+            do=args[3], causal=causal))
         both = lambda: (fa.flash_bwd_dq(*args, scale, causal),
                         fa.flash_bwd_dkv(*args, scale, causal))
         # K2 and K3 one after the other, as the backward runs them, beside
@@ -3523,7 +3996,8 @@ def phase_kernel_time(fa, device):
             bounds = [bwd_bound(B, S, H, KVH, D, causal, n, n == 3)
                       for n in products]
             bound_ms = sum(b[0] for b in bounds)
-            dev_ms = device_ms(kernel, 20)
+            dev_ms = device_ms(kernel, 20, bound_ms,
+                               f"{name} {(B, S, H, KVH, D)}")
             bwd_rows.append({
                 "kernel": name, "B": B, "S": S, "H": H, "KVH": KVH, "D": D,
                 "causal": causal, "ms": ms, "device_ms": dev_ms,
@@ -3584,7 +4058,11 @@ def main() -> int:
     gc_collect()
     data_launches = phase_data_infer(device, vit_images_per_s)
     gc_collect()
-    phase_ppo_train(device)
+    ppo_in_process = phase_ppo_train(device)
+    gc_collect()
+    phase_ppo_remote(device, ppo_in_process)
+    gc_collect()
+    phase_impala_async(device)
     gc_collect()
     phase_dqn_train(device)
     sac_columns = phase_sac_train(device)

@@ -27,7 +27,7 @@ design):
   receives its next block while it computes one (the reference's
   ``max_concurrency=2``), and takes at most two blocks at once. A block
   travels as a file of the pool's temporary directory, written and read
-  back in one call each (``_Spilled``), and the pipe carries its name:
+  back in one call each (``procs.Spilled``), and the pipe carries its name:
   through the pipe itself a 154 MB block arrived in 200 KB reads, each
   waiting for the interpreter lock, at 15 MB/s on an H100's host.
 - A pool worker that dies is seen by its sentinel. Under ``RTPU_DATA_FT``
@@ -225,46 +225,6 @@ class _PoolWorker:
                 "peak_card_bytes": _peak_card_bytes()}
 
 
-class _Spilled:
-    """A block written to a file, for the other side of a pool's pipe:
-    the arrays' bytes go out of band (pickle protocol 5) in one write,
-    and come back in one read into one buffer that the arrays then share;
-    the pipe carries this handle. The reader removes the file."""
-
-    def __init__(self, path: str, obj: Any):
-        bufs: List[pickle.PickleBuffer] = []
-        self.meta = pickle.dumps(obj, protocol=5,
-                                 buffer_callback=bufs.append)
-        raws = [b.raw() for b in bufs]
-        self.sizes = [r.nbytes for r in raws]
-        self.path = path
-        with open(path, "wb", buffering=0) as f:
-            for r in raws:
-                done = 0
-                while done < r.nbytes:
-                    done += f.write(r[done:])
-
-    def load(self) -> Any:
-        buf = memoryview(bytearray(sum(self.sizes)))
-        with open(self.path, "rb", buffering=0) as f:
-            done = 0
-            while done < len(buf):
-                n = f.readinto(buf[done:])
-                if not n:
-                    raise EOFError(f"{self.path}: short block file")
-                done += n
-        os.unlink(self.path)
-        views, off = [], 0
-        for n in self.sizes:
-            views.append(buf[off:off + n])
-            off += n
-        return pickle.loads(self.meta, buffers=views)
-
-
-def _unspill(method: str, args: Tuple) -> Tuple:
-    return (args[0].load(),) + args[1:] if method == "apply" else args
-
-
 def _pool_worker_main(conn, slot: int, card: Optional[int], spill_dir: str,
                       payload: bytes) -> None:
     """A pool worker process: take the card, then serve the UDF's calls
@@ -280,11 +240,11 @@ def _pool_worker_main(conn, slot: int, card: Optional[int], spill_dir: str,
     def spill(seq: int, method: str, value: Any) -> Any:
         if method != "apply":
             return value
-        return _Spilled(os.path.join(spill_dir, f"{seq}.out"), value)
+        return procs.Spilled(os.path.join(spill_dir, f"{seq}.out"), value)
 
     procs.serve(conn, lambda: _PoolWorker(io, *pickle.loads(payload)),
-                ready={"t_main": t_main, "t_card": t_card}, load=_unspill,
-                wrap=spill, io=io)
+                ready={"t_main": t_main, "t_card": t_card},
+                load=procs.unspill, wrap=spill, io=io)
 
 
 class _Slot(procs.Worker):
@@ -343,8 +303,8 @@ class _WorkerPool:
         t = time.perf_counter()
         if method == "apply":
             self.n_in += 1
-            args = (_Spilled(os.path.join(self.spill_dir, f"{self.n_in}.in"),
-                             args[0]),) + tuple(args[1:])
+            path = os.path.join(self.spill_dir, f"{self.n_in}.in")
+            args = (procs.Spilled(path, args[0]),) + tuple(args[1:])
         seq = slot.send(method, args)
         self.send_s += time.perf_counter() - t
         return seq
@@ -358,7 +318,7 @@ class _WorkerPool:
         first). Raises where a worker's UDF constructor raised."""
         replies, dead = procs.wait(self.slots, timeout)
         for slot, seq, status, value in replies:
-            if isinstance(value, _Spilled):
+            if isinstance(value, procs.Spilled):
                 t = time.perf_counter()
                 value = value.load()
                 self.load_s += time.perf_counter() - t

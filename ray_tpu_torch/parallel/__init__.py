@@ -3,8 +3,9 @@
 The counterpart of the JAX package's ``parallel/``: DP, FSDP and TP
 expressed as DTensor placements over a named ``DeviceMesh``, from the same
 logical-axis rule tables, and the GPipe pipeline over ``pipe``
-(``pipeline.py``). The actor-based ``MPMDPipeline`` is framework glue
-(ROADMAP item G).
+(``pipeline.py``), and host collectives with a group object between
+processes (``collectives.py``). The actor-based ``MPMDPipeline`` is
+framework glue (ROADMAP item G).
 """
 from .mesh import (
     AXIS_ORDER,

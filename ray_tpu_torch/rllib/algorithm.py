@@ -2,8 +2,12 @@
 ``rllib/algorithm.py``).
 
 Parity: reference rllib/algorithms/algorithm.py:213 (Algorithm(Trainable),
-step :818, training_step :1586, save/restore). Builds the local
-EnvRunnerGroup and LearnerGroup from an AlgorithmConfig; ``train()`` runs
+step :818, training_step :1586, save/restore). Builds the EnvRunnerGroup
+(``num_env_runners`` runner processes, or the local runner at 0) and the
+LearnerGroup (a learner process with ``num_learners`` > 0, or the learner
+in this process) from an AlgorithmConfig; the env creator and the module
+and learner factories go to those processes by plain pickle
+(``ModuleFactory``, ``LearnerFactory``). ``train()`` runs
 one training_step with metric bookkeeping; checkpoints carry the learner
 state (params and optimizer). ``train``/``save``/``restore``/``stop`` have
 the meaning of the JAX package's Tune ``Trainable`` (an iteration counter
@@ -46,6 +50,48 @@ def env_spaces(creator: Callable[..., Any]) -> Tuple[Any, Any]:
         env.close()
 
 
+class ModuleFactory:
+    """Builds the default RLModule for an env: ``catalog.module_for_space``
+    of its spaces (after the env-to-module connector's shape, if any). A
+    module-level callable, so it goes by plain pickle to an env runner
+    or learner process."""
+
+    def __init__(self, creator: Callable[..., Any],
+                 model_config: Dict[str, Any],
+                 connector_factory: Optional[Callable[[], Any]] = None):
+        self.creator = creator
+        self.model_config = model_config
+        self.connector_factory = connector_factory
+
+    def __call__(self):
+        from .core.catalog import module_for_space
+
+        obs_space, action_space = env_spaces(self.creator)
+        if self.connector_factory is not None:
+            # The module sees connector OUTPUT shapes.
+            shape = tuple(
+                self.connector_factory().output_shape(obs_space.shape))
+            obs_space = Box(-np.inf, np.inf, shape, np.float32)
+        return module_for_space(obs_space, action_space, self.model_config)
+
+
+class LearnerFactory:
+    """Builds a learner: ``learner_cls(module_factory(), *args, **kw)``. A
+    module-level callable, so it goes by plain pickle to a learner
+    process."""
+
+    def __init__(self, learner_cls: Callable[..., Any],
+                 module_factory: Callable[[], Any], *args: Any, **kw: Any):
+        self.learner_cls = learner_cls
+        self.module_factory = module_factory
+        self.args = args
+        self.kw = kw
+
+    def __call__(self):
+        return self.learner_cls(self.module_factory(), *self.args,
+                                **self.kw)
+
+
 class Algorithm:
     config_cls = AlgorithmConfig
 
@@ -73,6 +119,8 @@ class Algorithm:
 
     def setup(self, config: Dict[str, Any]) -> None:
         cfg = self._algo_config
+        # The runner processes spawn first and start while the learner's
+        # process starts (LearnerGroup waits for its learner only).
         self.env_runner_group = EnvRunnerGroup(
             cfg.make_env_creator(),
             self._module_factory(),
@@ -84,8 +132,13 @@ class Algorithm:
             vectorize_mode=cfg.vectorize_mode,
             device=cfg.device,
         )
-        self.learner_group = LearnerGroup(
-            self._learner_factory(), num_learners=cfg.num_learners)
+        try:
+            self.learner_group = LearnerGroup(
+                self._learner_factory(), num_learners=cfg.num_learners,
+                device=cfg.device)
+        except BaseException:
+            self.env_runner_group.stop()  # no runner process left behind
+            raise
         # Learner-connector pipeline: sampled data passes through it before
         # advantage estimation (reference learner connector position). The
         # fragment path hands it [T, N] columns; the episode paths hand it
@@ -102,22 +155,8 @@ class Algorithm:
         """Returns a zero-arg callable building the RLModule from the env's
         spaces (the port's or gymnasium's)."""
         cfg = self._algo_config
-        creator = cfg.make_env_creator()
-        model_config = dict(cfg.model)
-        connector_factory = cfg.env_to_module_connector
-
-        def factory():
-            from .core.catalog import module_for_space
-
-            obs_space, action_space = env_spaces(creator)
-            if connector_factory is not None:
-                # The module sees connector OUTPUT shapes.
-                shape = tuple(
-                    connector_factory().output_shape(obs_space.shape))
-                obs_space = Box(-np.inf, np.inf, shape, np.float32)
-            return module_for_space(obs_space, action_space, model_config)
-
-        return factory
+        return ModuleFactory(cfg.make_env_creator(), dict(cfg.model),
+                             cfg.env_to_module_connector)
 
     def _learner_factory(self):
         raise NotImplementedError

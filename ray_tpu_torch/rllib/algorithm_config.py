@@ -13,6 +13,24 @@ import copy
 from typing import Any, Callable, Dict, Optional, Type
 
 
+class GymCreator:
+    """The env creator of a gymnasium id: ``gymnasium.make(env_id,
+    **env_config)``. A module-level callable, so it goes by plain pickle
+    to an env runner process."""
+
+    def __init__(self, env_id: str, env_config: Dict[str, Any]):
+        self.env_id = env_id
+        self.env_config = env_config
+
+    def __call__(self):
+        import gymnasium as gym
+
+        return gym.make(self.env_id, **self.env_config)
+
+    def __repr__(self) -> str:
+        return f"GymCreator({self.env_id!r})"
+
+
 class AlgorithmConfig:
     def __init__(self, algo_class: Optional[Type] = None):
         self.algo_class = algo_class
@@ -148,14 +166,7 @@ class AlgorithmConfig:
             return self.env_creator
         if self.env is None:
             raise ValueError("config.environment(env=...) not set")
-        env_id, env_cfg = self.env, dict(self.env_config)
-
-        def creator():
-            import gymnasium as gym
-
-            return gym.make(env_id, **env_cfg)
-
-        return creator
+        return GymCreator(self.env, dict(self.env_config))
 
     def build_algo(self):
         if self.algo_class is None:

@@ -11,13 +11,14 @@ stays on the device until the prioritized buffer asks for it.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ..algorithm import Algorithm, env_spaces
+from ..algorithm import Algorithm, LearnerFactory, env_spaces
 from ..algorithm_config import AlgorithmConfig
 from ..core.learner import TorchLearner, mean_metrics, tree_map
 from ..core.rl_module import MLPModule, RLModule
@@ -140,28 +141,21 @@ class DQN(Algorithm):
 
     def _module_factory(self):
         cfg = self._algo_config
-        creator = cfg.make_env_creator()
-        connector_factory = cfg.env_to_module_connector
-
-        def factory():
-            obs_space, action_space = env_spaces(creator)
-            shape = obs_space.shape
-            if connector_factory is not None:
-                shape = tuple(connector_factory().output_shape(shape))
-            return DQNModule(int(np.prod(shape)), action_space.n,
-                             tuple(cfg.model.get("fcnet_hiddens", (64, 64))))
-
-        return factory
+        obs_space, action_space = env_spaces(cfg.make_env_creator())
+        shape = obs_space.shape
+        if cfg.env_to_module_connector is not None:
+            shape = tuple(
+                cfg.env_to_module_connector().output_shape(shape))
+        # A partial of the class: it goes by plain pickle to a process.
+        return functools.partial(
+            DQNModule, int(np.prod(shape)), action_space.n,
+            tuple(cfg.model.get("fcnet_hiddens", (64, 64))))
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return DQNLearner(module_factory(), cfg, mesh=cfg.learner_mesh,
-                              seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(DQNLearner, self._module_factory(), cfg,
+                              mesh=cfg.learner_mesh, seed=cfg.seed,
+                              device=cfg.device)
 
     def _setup_extra(self) -> None:
         cfg = self._algo_config

@@ -16,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..algorithm import Algorithm
+from ..algorithm import Algorithm, LearnerFactory
 from ..algorithm_config import AlgorithmConfig
 from ..core.learner import TorchLearner
 from ..utils.episodes import (_next_pow2, episodes_to_batch,
@@ -118,13 +118,9 @@ class PPO(Algorithm):
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return PPOLearner(module_factory(), cfg, mesh=cfg.learner_mesh,
-                              seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(PPOLearner, self._module_factory(), cfg,
+                              mesh=cfg.learner_mesh, seed=cfg.seed,
+                              device=cfg.device)
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self._algo_config

@@ -20,6 +20,7 @@ follow the reference's draws.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..algorithm import Algorithm, env_spaces
+from ..algorithm import Algorithm, LearnerFactory, env_spaces
 from ..algorithm_config import AlgorithmConfig
 from ..core.learner import TorchLearner, mean_metrics, tree_leaves, tree_map
 from ..core.rl_module import RLModule, _dense, _dense_init
@@ -292,20 +293,15 @@ class SAC(Algorithm):
         obs_dim = int(np.prod(obs_shape))
         hiddens = tuple(cfg.model.get("fcnet_hiddens", (256, 256)))
 
-        def factory():
-            return SACModule(obs_dim, act_dim, low, high, hiddens)
-
-        return factory
+        # A partial of the class: it goes by plain pickle to a process.
+        return functools.partial(SACModule, obs_dim, act_dim, low, high,
+                                 hiddens)
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return SACLearner(module_factory(), cfg, mesh=cfg.learner_mesh,
-                              seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(SACLearner, self._module_factory(), cfg,
+                              mesh=cfg.learner_mesh, seed=cfg.seed,
+                              device=cfg.device)
 
     def _setup_extra(self) -> None:
         cfg = self._algo_config

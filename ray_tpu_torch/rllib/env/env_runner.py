@@ -7,8 +7,9 @@ policy, and returns fragments or completed/truncated episode chunks
 carrying logp and value predictions for GAE/v-trace.
 
 Policy inference runs on ``device``: the card unless the caller asks for
-the CPU (the reference's runner defaults to the CPU; its actor-hosted CPU
-runners are framework glue not yet ported). Observations go to the device
+the CPU (the reference's runner defaults to the CPU; the port's runner
+processes, ``env_runner_group.py``, run it on the CPU unless they are given
+a card). Observations go to the device
 as they come (uint8 pixels stay uint8) and are cast there; one forward per
 vector step over all envs, and one copy back of the actions, their logp
 and the values. Actions are drawn from a seeded ``torch.Generator`` on the
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..core.learner import tree_map
+from ..core.learner import to_numpy, tree_map
 from ..utils.episodes import SingleAgentEpisode
 
 
@@ -110,6 +111,11 @@ class SingleAgentEnvRunner:
                        if isinstance(w, torch.Tensor)
                        else torch.as_tensor(np.array(w)).to(self.device)),
             weights)
+
+    def get_weights(self) -> Any:
+        """The policy's params as a numpy tree (what ``set_weights`` was
+        last given)."""
+        return tree_map(to_numpy, self.params)
 
     def _to_device(self, obs: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(obs)).to(self.device)

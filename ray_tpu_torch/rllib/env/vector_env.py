@@ -11,6 +11,7 @@ fragment sampler (env_runner.sample_fragment) consumes and three backends:
 - GymVecEnv: gymnasium sync/async vector envs (NEXT_STEP autoreset — the
   step after a done returns the reset observation and ignores its action,
   which the sampler records as an invalid row).
+- BatchedCreator: the ``env_creator`` of a BatchedEnv class, picklable.
 - CnnRolloutBenchEnv: a pure-numpy Atari-shaped synthetic env whose whole
   batch steps in a few vector ops (SAME_STEP autoreset). It exists to
   measure the sampler+policy-inference ceiling without ALE in the image;
@@ -54,6 +55,24 @@ class BatchedEnv:
 
     def close(self) -> None:
         pass
+
+
+class BatchedCreator:
+    """An ``env_creator`` that builds a whole BatchedEnv: ``creator(n)`` is
+    ``cls(n, **kw)``. A module-level callable, so it goes by plain pickle
+    to an env runner process (a nested creator cannot)."""
+
+    makes_batched_env = True
+
+    def __init__(self, cls: Callable[..., BatchedEnv], **kw: Any):
+        self.cls = cls
+        self.kw = kw
+
+    def __call__(self, num_envs: int) -> BatchedEnv:
+        return self.cls(num_envs, **self.kw)
+
+    def __repr__(self) -> str:
+        return f"BatchedCreator({self.cls.__name__}, **{self.kw!r})"
 
 
 class GymVecEnv(BatchedEnv):

@@ -13,7 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..algorithm import Algorithm
+from ..algorithm import Algorithm, LearnerFactory
 from ..algorithm_config import AlgorithmConfig
 from ..core.learner import TorchLearner
 from .io import iter_offline_batches, load_columns
@@ -52,14 +52,9 @@ class BC(Algorithm):
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return BCLearner(module_factory(), lr=cfg.lr,
-                             grad_clip=cfg.grad_clip, mesh=cfg.learner_mesh,
-                             seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(BCLearner, self._module_factory(), lr=cfg.lr,
+                              grad_clip=cfg.grad_clip, mesh=cfg.learner_mesh,
+                              seed=cfg.seed, device=cfg.device)
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self._algo_config

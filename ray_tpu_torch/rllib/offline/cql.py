@@ -22,6 +22,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..algorithm import LearnerFactory
 from ..algorithms.sac import SAC, SACConfig, SACLearner, SACModule
 from .io import iter_offline_batches, load_columns
 
@@ -93,13 +94,9 @@ class CQL(SAC):
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return CQLLearner(module_factory(), cfg, mesh=cfg.learner_mesh,
-                              seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(CQLLearner, self._module_factory(), cfg,
+                              mesh=cfg.learner_mesh, seed=cfg.seed,
+                              device=cfg.device)
 
     def training_step(self) -> Dict[str, Any]:
         """Pure offline: shuffled minibatches of logged transitions into

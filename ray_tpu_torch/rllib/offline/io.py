@@ -5,9 +5,10 @@ Parity: reference rllib/offline/ (json_writer.py / json_reader.py and the
 OfflineData datasets path): env runners write experiences to files; offline
 algorithms train from those files without touching an environment.
 Transitions are columnar .npz shards with a manifest.jsonl beside them, the
-JAX package's format: either package reads what the other wrote. The port
-reads the shards with numpy (``load_columns``); the Dataset of
-``read_experiences`` waits for the data glue (ROADMAP item G).
+JAX package's format: either package reads what the other wrote.
+``read_experiences`` gives the shards as the port's data Dataset (one block
+a shard, in the order of their sorted names), and ``load_columns`` reads
+through it, as the reference's.
 """
 from __future__ import annotations
 
@@ -87,24 +88,29 @@ def write_transitions(columns: Dict[str, np.ndarray], path: str) -> str:
 
 
 def read_experiences(path: str):
-    """The reference's Dataset of transitions (rllib/offline/
-    offline_data.py on ray.data): framework glue not yet ported."""
-    raise NotImplementedError(
-        "read_experiences returns a data-pipeline Dataset, framework glue "
-        "not yet ported (ROADMAP item G); use load_columns")
+    """Offline dataset of transitions as a ``ray_tpu_torch.data`` Dataset,
+    one block a shard (the reference's OfflineData-on-ray.data design,
+    rllib/offline/offline_data.py)."""
+    from ...data import from_blocks
+
+    files = sorted(globlib.glob(os.path.join(path, "experiences-*.npz")))
+    if not files:
+        raise FileNotFoundError(f"no experience shards under {path!r}")
+    blocks = []
+    for fn in files:
+        with np.load(fn) as z:
+            blocks.append({k: z[k] for k in z.files})
+    return from_blocks(blocks)
 
 
 def load_columns(path: str) -> Dict[str, np.ndarray]:
     """All shards concatenated into one columnar dict (cacheable), in the
     order of their sorted file names."""
-    files = sorted(globlib.glob(os.path.join(path, "experiences-*.npz")))
-    if not files:
-        raise FileNotFoundError(f"no experience shards under {path!r}")
+    ds = read_experiences(path)
     cols: Dict[str, List[np.ndarray]] = {}
-    for fn in files:
-        with np.load(fn) as z:
-            for k in z.files:
-                cols.setdefault(k, []).append(z[k])
+    for batch in ds.iter_batches(batch_format="numpy"):
+        for k, v in batch.items():
+            cols.setdefault(k, []).append(v)
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 

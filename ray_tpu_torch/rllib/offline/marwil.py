@@ -21,7 +21,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..algorithm import Algorithm
+from ..algorithm import Algorithm, LearnerFactory
 from ..algorithm_config import AlgorithmConfig
 from ..core.learner import TorchLearner
 from .io import iter_offline_batches, load_columns
@@ -157,16 +157,11 @@ class MARWIL(Algorithm):
 
     def _learner_factory(self):
         cfg = self._algo_config
-        module_factory = self._module_factory()
-
-        def factory():
-            return MARWILLearner(
-                module_factory(), beta=cfg.beta, vf_coeff=cfg.vf_coeff,
-                max_weight=cfg.max_weight, lr=cfg.lr,
-                grad_clip=cfg.grad_clip, mesh=cfg.learner_mesh,
-                seed=cfg.seed, device=cfg.device)
-
-        return factory
+        return LearnerFactory(
+            MARWILLearner, self._module_factory(), beta=cfg.beta,
+            vf_coeff=cfg.vf_coeff, max_weight=cfg.max_weight, lr=cfg.lr,
+            grad_clip=cfg.grad_clip, mesh=cfg.learner_mesh, seed=cfg.seed,
+            device=cfg.device)
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self._algo_config

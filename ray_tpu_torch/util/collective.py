@@ -56,8 +56,9 @@ def init_collective_group(
 ) -> None:
     """Join this process into a collective group. Every member calls it
     with the same ``group_name``. With no default process group up,
-    ``store_address`` (``"host:port"`` of a TCPStore server that outlives
-    the group) starts a default gloo group of ``world_size`` processes."""
+    ``store_address`` starts a default gloo group of ``world_size``
+    processes: ``"host:port"`` of a TCPStore server that outlives the
+    group, or ``"file://<path>"`` of a ``FileStore`` every member opens."""
     if backend not in ("host", "gloo"):
         raise ValueError(f"backend {backend!r}: the port's host collectives "
                          "run on gloo ('host')")
@@ -70,9 +71,13 @@ def init_collective_group(
         if store_address is None:
             raise RuntimeError(
                 "no process group is up: pass store_address to start one")
-        host, port = store_address.rsplit(":", 1)
-        store = dist.TCPStore(host, int(port), world_size, is_master=False,
-                              timeout=TIMEOUT)
+        if store_address.startswith("file://"):
+            store = dist.FileStore(store_address[len("file://"):],
+                                   world_size)
+        else:
+            host, port = store_address.rsplit(":", 1)
+            store = dist.TCPStore(host, int(port), world_size,
+                                  is_master=False, timeout=TIMEOUT)
         dist.init_process_group(
             "gloo", store=dist.PrefixStore(f"collective/{group_name}", store),
             world_size=world_size, rank=rank, timeout=TIMEOUT)
@@ -100,6 +105,11 @@ def destroy_collective_group(group_name: str = "default") -> None:
 
 def is_group_initialized(group_name: str = "default") -> bool:
     return group_name in _process_groups
+
+
+def process_group(group_name: str = "default") -> Any:
+    """The gloo ``ProcessGroup`` behind a collective group."""
+    return _state(group_name).group
 
 
 def get_rank(group_name: str = "default") -> int:

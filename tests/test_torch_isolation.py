@@ -1,8 +1,9 @@
 """The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor any
 module of the JAX package (nor gymnasium, but inside the functions that
 build a gymnasium env, nor cloudpickle, which the card's machine lacks),
-also inside a spawned train worker or data pool worker, and its entry
-points refuse to fall back to the CPU on their own."""
+also inside a spawned train worker, data pool worker, env runner or
+learner process, and its entry points refuse to fall back to the CPU on
+their own."""
 import pathlib
 import re
 import subprocess
@@ -60,6 +61,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "ray_tpu_torch.util.collective"} <= set(lines["NAMES"].split())
     assert {"ray_tpu_torch.data." + m for m in DATA_MODULES} | {
         "ray_tpu_torch.util.procs"} <= set(lines["NAMES"].split())
+    assert {rl + "utils.actor_manager", "ray_tpu_torch.parallel.collectives"
+            } <= set(lines["NAMES"].split())
 
 
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
@@ -156,6 +159,138 @@ def test_pool_worker_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
                           text=True, timeout=120, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WORKER ['']" in proc.stdout.splitlines(), proc.stdout
+
+
+_RL_SCRIPT = r"""
+import sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+from ray_tpu_torch.rllib.env.vector_env import CartPoleBatchedEnv
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+class ProbeEnv(CartPoleBatchedEnv):
+    # Runs in the runner process: a leak fails the sample there.
+    def step(self, actions):
+        if leaked():
+            raise RuntimeError(f"LEAKED {{leaked()}}")
+        return super().step(actions)
+
+
+class ProbeLearner(PPOLearner):
+    def leaked(self):
+        return leaked()
+
+
+if __name__ == "__main__":
+    import functools
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithm import LearnerFactory
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule
+    from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
+    from ray_tpu_torch.rllib.env.vector_env import BatchedCreator
+    from ray_tpu_torch.rllib.utils.rollout import fragments_to_ppo_batch
+
+    runners = EnvRunnerGroup(BatchedCreator(ProbeEnv),
+                             functools.partial(MLPModule, 4, 2),
+                             num_runners=1, num_envs_per_runner=2)
+    learners = LearnerGroup(
+        LearnerFactory(ProbeLearner, functools.partial(MLPModule, 4, 2),
+                       PPOConfig(), device="cpu"),
+        num_learners=1, device="cpu")
+    try:
+        runners.sync_weights(learners.get_weights())
+        frags = runners.sample_fragments(8)
+        print("FRAGMENTS", len(frags))
+        learners.update(fragments_to_ppo_batch(frags, gamma=0.99, lam=0.95))
+        print("LEARNER", learners.call("leaked"))
+        info = runners.manager.foreach_actor("process_info")[0][1]
+        print("RUNNER_CUDA", info["cuda_initialized"], info["device"])
+    finally:
+        runners.stop()
+        learners.shutdown()
+    print("DRIVER", leaked())
+"""
+
+
+def test_rl_processes_import_without_jax_ray_tpu_or_cloudpickle(tmp_path):
+    """An env runner process samples and a learner process updates with
+    jax, the JAX package and cloudpickle blocked, and neither imports any
+    of them; the CPU runner never starts CUDA."""
+    script = tmp_path / "rl_imports.py"
+    script.write_text(_RL_SCRIPT.format(repo=str(REPO)))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    for want in ("FRAGMENTS 1", "LEARNER []", "RUNNER_CUDA False cpu",
+                 "DRIVER []"):
+        assert want in lines, (want, proc.stdout, proc.stderr[-3000:])
+
+
+def test_rl_processes_refuse_before_any_spawn(monkeypatch):
+    """Runner processes on cards (runner_resources={"num_gpus": 1}) and a
+    learner process on the card raise before any spawn when CUDA is
+    absent, as does a nested env creator, naming itself; asked for the
+    CPU, the spawn is reached."""
+    import functools
+
+    from ray_tpu_torch.rllib.algorithm import LearnerFactory
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core import learner_group
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule
+    from ray_tpu_torch.rllib.env import env_runner_group
+    from ray_tpu_torch.rllib.env.vector_env import (BatchedCreator,
+                                                    CartPoleBatchedEnv)
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a worker was spawned")
+
+    monkeypatch.setattr(env_runner_group, "ActorProcess", no_spawn)
+    monkeypatch.setattr(learner_group, "ActorProcess", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = functools.partial(MLPModule, 4, 2)
+    creator = BatchedCreator(CartPoleBatchedEnv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        env_runner_group.EnvRunnerGroup(creator, module, num_runners=1,
+                                        runner_resources={"num_gpus": 1})
+    factory = LearnerFactory(PPOLearner, module, PPOConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        learner_group.LearnerGroup(factory, num_learners=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PPOConfig().environment(env_creator=creator).learners(
+            num_learners=1).build()
+
+    def nested_creator(n):
+        return CartPoleBatchedEnv(n)
+    nested_creator.makes_batched_env = True
+    with pytest.raises(TypeError, match="nested_creator"):
+        env_runner_group.EnvRunnerGroup(nested_creator, module,
+                                        num_runners=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 env runners need 2 cards, 1 "
+                                         "visible"):
+        env_runner_group.EnvRunnerGroup(creator, module, num_runners=2,
+                                        runner_resources={"num_gpus": 1})
+    # Asked for the CPU, the spawn is reached.
+    with pytest.raises(AssertionError, match="a worker was spawned"):
+        env_runner_group.EnvRunnerGroup(creator, module, num_runners=1)
+    with pytest.raises(AssertionError, match="a worker was spawned"):
+        learner_group.LearnerGroup(
+            LearnerFactory(PPOLearner, module, PPOConfig(), device="cpu"),
+            num_learners=1, device="cpu")
 
 
 def test_data_entry_points_refuse_without_cuda_before_any_spawn(

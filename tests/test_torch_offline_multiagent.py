@@ -109,8 +109,28 @@ def test_shards_written_by_the_port_read_by_jax(tmp_path, ray_start_regular):
     with pytest.raises(ValueError, match="ragged"):
         tio.write_transitions({"obs": np.zeros((2, 1)),
                                "actions": np.zeros(3)}, str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="item G"):
-        tio.read_experiences(str(tmp_path / "port" / "trans"))
+    ds = tio.read_experiences(str(tmp_path / "port" / "trans"))
+    assert ds.count() == len(got["actions"])
+
+
+def test_read_experiences_dataset_matches_the_jax_package(
+        tmp_path, ray_start_regular):
+    """Three shards in one directory: the port's read_experiences Dataset
+    gives the JAX package's rows (a block a shard, sorted by file name),
+    and load_columns, which reads through it, the JAX package's
+    columns."""
+    rng = np.random.default_rng(3)
+    for n in (7, 300, 21):
+        tio.write_transitions(_transitions(rng, n), str(tmp_path))
+    ds, jds = (io.read_experiences(str(tmp_path)) for io in (tio, jio))
+    got, want = ds.take_all(), jds.take_all()
+    assert len(got) == len(want) == 328
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    _assert_columns(tio.load_columns(str(tmp_path)),
+                    jio.load_columns(str(tmp_path)))
 
 
 @pytest.mark.parametrize("n,batch", [(40, 8), (40, 12), (5, 8)])

@@ -681,13 +681,3 @@ def test_episode_paths_train_on_gym_cartpole(algo_name):
     assert np.isfinite(result["total_loss"])
     assert result["timesteps_total"] > 0
     algo.stop()
-
-
-def test_remote_runners_and_learners_raise():
-    cfg = (tppo.PPOConfig()
-           .environment(env_creator=_batched(tvec.CartPoleBatchedEnv))
-           .resources(device="cpu"))
-    with pytest.raises(NotImplementedError, match="item G"):
-        cfg.copy().env_runners(num_env_runners=1).build()
-    with pytest.raises(NotImplementedError, match="item G"):
-        cfg.copy().learners(num_learners=1).build()
