@@ -42,7 +42,26 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    time at 4 busy slots, timed after the run with the ticker stopped.
 4. ``prefill_time`` and ``profile``: each prefill bucket's time; the
    device busy time and idle share of a decode tick and of two prefills
-   (torch.profiler).
+   (torch.profiler). Then the Serve layer (``ray_tpu_torch.serve``),
+   Llama-3-8B at full width and depth on replica processes, one card a
+   replica, weights made from SEED on the replica's card
+   (``SeededLlama``), one deployment at a time through ``serve.run`` and
+   its handle: ``serve_stream`` (the streaming deployment with
+   continuous batching, 4 slots: the slice's prompts streamed four at a
+   time, every stream's tokens equal to the in-process engine's; four
+   more, one closed after 3 tokens, whose slot must be free before the
+   engine's next decode step ends; TTFT beside the in-process prefill,
+   the gap between tokens at 4 streams beside the in-process tick),
+   ``serve_batch`` (the ``@batch`` deployment: four prompts of 1100-2048
+   tokens sent at once, twice, each one's tokens equal to an in-process
+   ``generate_ragged`` over the same rows, the batch sizes formed) and,
+   with two cards or more, ``serve_disagg`` (the prefill pool on one
+   card, the decode pool on another, the ingress on the CPU without
+   CUDA: the slice's prompts, tokens equal to serve_stream's; the
+   2048-token prompt again, a prefix-cache hit; the K/V handoff files'
+   MB and seconds). Each prints its replicas' spawn seconds, K1 launches
+   (32 a prefill) and peak memory; on one card ``serve_disagg`` prints
+   that it did not run. ``tools/serve_phases.py`` runs them alone.
 5. ``train``: the training main path. ``bench_350m(remat=True,
    remat_policy="dots")`` at full width and depth (f32 params, bf16
    compute) through ``transformer_train_step`` with the default AdamW:
@@ -372,6 +391,18 @@ MOE_PREFILL, MOE_DECODE = 2048, 16
 # model), pipe (2 x world microbatches).
 DIST_LONG_SEQ, DIST_LONG_BATCH = 4096, 2
 DIST_LAYOUTS = ("fsdp", "seq_ring", "seq_ulysses", "expert", "pipe")
+# The serve phases: Llama-3-8B behind the Serve layer, one replica process
+# a card (the engine's shapes: 4 slots, prompts to 2048, 64 new tokens).
+# serve_batch's prompts all fall in the 2048 bucket, so every batch the
+# coalescer forms is [4, 2048]. A stream of serve_stream is closed after
+# SERVE_CLOSE_AFTER tokens. serve_disagg's decode replica keeps a prefix
+# cache of SERVE_PREFIX_MB: a 2048-token entry is 256 MiB of K/V (32
+# layers x 8 kv heads x 128 x 2 x bf16 = 128 KiB a token) and its logits,
+# past the 256 MiB default.
+SERVE_BATCH_LENS = (1100, 1300, 1500, 2048)
+SERVE_CLOSE_AFTER = 3
+SERVE_PREFIX_MB = 2048
+SERVE_READY_TIMEOUT_S = 600
 
 
 def emit(phase: str, **fields) -> None:
@@ -797,7 +828,7 @@ def phase_slice(device):
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
     if failures:
         raise AssertionError("; ".join(failures))
-    return cfg, params, prompts, launches, eng, tick_ms / 1e3
+    return cfg, params, prompts, outs, launches, eng, tick_ms / 1e3
 
 
 def phase_prefill_time(cfg, params, prompts, device):
@@ -825,6 +856,7 @@ def phase_prefill_time(cfg, params, prompts, device):
         rows.append({"bucket": S, "prompt_len": len(prompt),
                      "ms_median": statistics.median(times), "ms": times})
     emit("prefill_time", model="llama3_8b", rows=rows)
+    return {r["bucket"]: r["ms_median"] for r in rows}
 
 
 # In one process torch.profiler loses kernel records, more the older the
@@ -915,6 +947,365 @@ def phase_profile(cfg, params, prompts, eng, tick_s, device):
                      "k1_share_of_busy": k1_ms / busy if busy else None,
                      "top_kernels_ms": top[:6]})
     emit("profile", decode_tick_4_slots=tick, prefill=rows)
+
+
+
+# ------------------------------------------------------------ serve phases
+
+
+class SeededLlama:
+    """The serve phases' params factory, run in the replica process:
+    Llama-3-8B in bf16 from SEED on the replica's card, as phase_slice
+    makes the witness's (the same seed on a card of the same kind gives
+    the same weights)."""
+
+    def __call__(self):
+        import torch
+
+        from ray_tpu_torch.device import resolve_device
+        from ray_tpu_torch.models.configs import llama3_8b
+        from ray_tpu_torch.models.transformer import init_params
+
+        dev = resolve_device(None)
+        return init_params(llama3_8b(param_dtype=torch.bfloat16),
+                           torch.Generator(device=dev).manual_seed(SEED), dev)
+
+
+def _serve_run(app):
+    """serve.run with a ready timeout that an 8B init leaves room for;
+    returns (handle, seconds)."""
+    from ray_tpu_torch import flags, serve
+
+    t0 = time.perf_counter()
+    with flags.scoped({"RTPU_SERVE_READY_TIMEOUT_S":
+                       str(SERVE_READY_TIMEOUT_S)}):
+        handle = serve.run(app)
+    return handle, time.perf_counter() - t0
+
+
+def _replicas(name):
+    from ray_tpu_torch.serve import controller
+
+    return controller._local.get_replicas(name)[1]
+
+
+def _starts(name):
+    from ray_tpu_torch.serve import controller
+
+    return controller._local.get_replica_starts(name)
+
+
+def _stream(handle, prompt, close_after=None, max_new_tokens=None):
+    """One stream through the handle: its tokens and each token's seconds
+    since the call; closed after ``close_after`` tokens."""
+    t0 = time.perf_counter()
+    toks, stamps = [], []
+    request = {"tokens": prompt}
+    if max_new_tokens is not None:
+        request["max_new_tokens"] = max_new_tokens
+    st = handle.options(stream=True).remote(request)
+    for chunk in st:
+        if "token" not in chunk:
+            raise AssertionError(f"stream answered {chunk}")
+        stamps.append(time.perf_counter() - t0)
+        toks.append(chunk["token"])
+        if close_after is not None and len(toks) == close_after:
+            st.close()
+            break
+    return toks, stamps
+
+
+def _streams_four_at_a_time(handle, prompts, close_after=None):
+    """Stream ``prompts`` NUM_SLOTS at a time (a consumer thread each);
+    ``close_after`` maps a prompt's index to the tokens read before its
+    stream is closed. Returns [(tokens, stamps)] in order and the wall."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    close_after = close_after or {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(NUM_SLOTS) as ex:
+        futs = [ex.submit(_stream, handle, p, close_after.get(i))
+                for i, p in enumerate(prompts)]
+        runs = [f.result() for f in futs]
+    return runs, time.perf_counter() - t0
+
+
+def _gaps_at_four(runs):
+    """Gaps between tokens (ms) while the first NUM_SLOTS streams, started
+    together, all stream: after the last of their first tokens, before
+    the first of them ends."""
+    first = runs[:NUM_SLOTS]
+    lo = max(stamps[0] for _, stamps in first)
+    hi = min(stamps[-1] for _, stamps in first)
+    return [(b - a) * 1e3 for _, stamps in first
+            for a, b in zip(stamps, stamps[1:]) if a >= lo and b <= hi]
+
+
+def _ttft_rows(prompts, runs, prefill_ms):
+    from ray_tpu_torch.serve.llm_engine import bucket_len
+
+    return [{"prompt_len": len(p), "bucket": bucket_len(len(p), MAX_PROMPT),
+             "ttft_ms": stamps[0] * 1e3,
+             "in_process_prefill_ms": prefill_ms.get(
+                 bucket_len(len(p), MAX_PROMPT))}
+            for p, (_, stamps) in zip(prompts, runs)]
+
+
+def _process_row(stats):
+    """A replica's process meter, as printed."""
+    info = stats["process"]
+    return {"pid": info["pid"], "card": info.get("card"),
+            "cuda_initialized": info["cuda_initialized"],
+            "k1_launches": (info.get("launches") or {}).get("flash_fwd", 0),
+            "peak_mem_gib": (info["peak_mem_bytes"] / 2 ** 30
+                             if "peak_mem_bytes" in info else None),
+            "result_files": info.get("spill_files", 0),
+            "result_file_mb": info.get("spill_bytes", 0) / 2 ** 20,
+            "result_file_write_s": info.get("spill_s", 0.0)}
+
+
+def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
+    """Llama-3-8B's streaming deployment with continuous batching on one
+    replica process (the card's first free one): PROMPT_LENS streamed
+    through the handle four at a time, each stream's greedy tokens equal
+    to the in-process engine's (phase_slice, the witness); then four
+    more, one closed after SERVE_CLOSE_AFTER tokens, whose slot must be
+    free before the engine's next decode step ends. A first round, one
+    token a prompt, one prompt at a time, meets each prefill shape once
+    (its TTFT is the cold one). Returns the replica's K1 launches."""
+    from ray_tpu_torch import serve
+
+    name = "serve-stream"
+    app = serve.build_streaming_llm_deployment(
+        cfg, SeededLlama(), name=name, max_prompt_len=MAX_PROMPT,
+        max_new_tokens=MAX_NEW, continuous_batching=True,
+        num_slots=NUM_SLOTS)
+    handle, run_s = _serve_run(app.bind())
+    failures, mismatches = [], []
+    try:
+        (rep,) = _replicas(name)
+        cold = [_stream(handle, p, max_new_tokens=1) for p in prompts]
+        runs, wall = _streams_four_at_a_time(handle, prompts)
+        for i, ((toks, _), (first, _)) in enumerate(zip(runs, cold)):
+            if toks != witness[i] or first != witness[i][:1]:
+                mismatches.append(f"stream {i} differs from the in-process "
+                                  f"engine's tokens: {toks[:8]} "
+                                  f"(first {first}) vs {witness[i][:8]}")
+        gaps = _gaps_at_four(runs)
+        # Four more: the first closed after SERVE_CLOSE_AFTER tokens while
+        # the others decode beside it.
+        again = [prompts[0], prompts[1], prompts[2], prompts[5]]
+        more, _ = _streams_four_at_a_time(handle, again,
+                                          {0: SERVE_CLOSE_AFTER})
+        wants = [witness[0][:SERVE_CLOSE_AFTER], witness[1], witness[2],
+                 witness[5]]
+        for (toks, _), want in zip(more, wants):
+            if toks != want:
+                mismatches.append(f"second round differs: {toks[:8]} vs "
+                                  f"{want[:8]}")
+        stats = rep.call("stats")
+        cancels = stats["serve"]["cancels"]
+        if len(cancels) != 1 or cancels[0]["ticks_until_free"] > 1:
+            failures.append(f"the closed stream's slot: {cancels}")
+        if stats["serve"]["slots_busy"] != 0:
+            failures.append(f"slots busy after every stream ended: "
+                            f"{stats['serve']}")
+        proc = _process_row(stats)
+        prefills = 2 * len(prompts) + len(again)
+        if proc["k1_launches"] != cfg.n_layers * prefills:
+            failures.append(f"the replica launched K1 {proc['k1_launches']} "
+                            f"times for {prefills} prefills of "
+                            f"{cfg.n_layers} layers")
+        starts = _starts(name)
+    finally:
+        serve.delete(name)
+    failures += mismatches
+    tokens = sum(len(t) for t, _ in runs)
+    emit("serve_stream", ok=not failures, failures=failures, model="llama3_8b",
+         num_slots=NUM_SLOTS, run_s=run_s, replicas=starts, replica=proc,
+         streams=len(cold) + len(runs) + len(more),
+         tokens_equal_witness=not mismatches,
+         ttft=_ttft_rows(prompts, runs, prefill_ms),
+         cold_ttft_ms=[stamps[0] * 1e3 for _, stamps in cold],
+         gap_ms_at_4_streams_median=(statistics.median(gaps)
+                                     if gaps else None),
+         gaps_at_4_streams=len(gaps),
+         in_process_tick_ms_4_slots=tick_s * 1e3,
+         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+         closed_stream=cancels)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return proc["k1_launches"]
+
+
+def phase_serve_batch(cfg, params, device):
+    """Llama-3-8B's @batch deployment on one replica process: four
+    requests sent at once, prompts of SERVE_BATCH_LENS tokens (every
+    batch [4, 2048]); each one's greedy tokens equal to an in-process
+    generate_ragged over the same four rows. Twice: the first round pays
+    the replica's first use. Returns the replica's K1 launches."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.generate import generate_ragged
+
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_BATCH_LENS]
+    toks = np.zeros((len(prompts), MAX_PROMPT), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lengths = torch.tensor([len(p) for p in prompts], device=device)
+    witness_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        witness = generate_ragged(params, torch.from_numpy(toks).to(device),
+                                  lengths, cfg, MAX_NEW).cpu().tolist()
+        witness_ms.append((time.perf_counter() - t) * 1e3)
+    gc_collect()
+
+    name = "serve-batch"
+    app = serve.build_llm_deployment(
+        cfg, SeededLlama(), name=name, max_batch_size=len(prompts),
+        max_prompt_len=MAX_PROMPT, max_new_tokens=MAX_NEW)
+    handle, run_s = _serve_run(app.bind())
+    failures, mismatches = [], []
+    rounds = []
+    try:
+        (rep,) = _replicas(name)
+        for _ in range(2):
+            t = time.perf_counter()
+            resps = [handle.remote({"tokens": p}) for p in prompts]
+            outs = [r.result(timeout=600) for r in resps]
+            rounds.append((time.perf_counter() - t) * 1e3)
+            for i, out in enumerate(outs):
+                if out.get("tokens") != witness[i]:
+                    mismatches.append(
+                        f"request {i} ({len(prompts[i])} tokens): "
+                        f"{str(out)[:120]} vs the witness's "
+                        f"{witness[i][:8]}")
+        stats = rep.call("stats")
+        sizes = stats["serve"]["batch_sizes"]
+        proc = _process_row(stats)
+        if proc["k1_launches"] != cfg.n_layers * len(sizes):
+            failures.append(f"the replica launched K1 {proc['k1_launches']} "
+                            f"times for {len(sizes)} batches")
+        starts = _starts(name)
+    finally:
+        serve.delete(name)
+    failures += mismatches
+    emit("serve_batch", ok=not failures, failures=failures,
+         model="llama3_8b", prompt_lens=list(SERVE_BATCH_LENS),
+         max_batch_size=len(prompts), run_s=run_s, replicas=starts,
+         replica=proc, batch_sizes=sizes,
+         tokens_equal_witness=not mismatches, round_ms=rounds,
+         in_process_generate_ragged_ms=witness_ms,
+         tokens_per_s_warm=len(prompts) * MAX_NEW / (rounds[-1] / 1e3))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return proc["k1_launches"]
+
+
+def phase_serve_disagg(cfg, prompts, witness, prefill_ms):
+    """The disaggregated plane with two cards or more: the prefill pool
+    on the first free card, the decode pool on the next, the ingress on
+    the CPU (no CUDA). Each prefill shape once (other prompts, one token
+    each), then PROMPT_LENS streamed four at a time, tokens equal to the
+    witness's (serve_stream's), their K/V handed off as files; the
+    2048-token prompt again, a
+    prefix-cache hit. On one card it prints that it did not run. Returns
+    the replicas' K1 launches."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import serve
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("serve_disagg", ran=False,
+             reason=f"needs two cards (the prefill pool on one, the decode "
+                    f"pool on another, as the JAX package needs two "
+                    f"chips); {cards} visible")
+        return 0
+    name = "serve-disagg"
+    app = serve.build_disagg_llm_deployment(
+        cfg, SeededLlama(), name=name, num_prefill_replicas=1,
+        num_decode_replicas=1, num_slots=NUM_SLOTS,
+        max_prompt_len=MAX_PROMPT, max_new_tokens=MAX_NEW,
+        prefix_cache_mb=SERVE_PREFIX_MB)
+    handle, run_s = _serve_run(app)
+    failures, mismatches = [], []
+    try:
+        (pre,) = _replicas(f"{name}-prefill")
+        (dec,) = _replicas(f"{name}-decode")
+        (ing,) = _replicas(name)
+        # Each prefill shape once first, on other prompts of the same
+        # lengths (the measured ones must miss the prefix cache).
+        rng = np.random.default_rng(SEED + 2)
+        cold = [_stream(handle, rng.integers(0, cfg.vocab_size,
+                                             len(p)).tolist(),
+                        max_new_tokens=1) for p in prompts]
+        h0 = dec.call("stats")["serve"]["handoff"]
+        w0 = _process_row(pre.call("stats"))
+        runs, wall = _streams_four_at_a_time(handle, prompts)
+        w1 = _process_row(pre.call("stats"))
+        for i, (toks, _) in enumerate(runs):
+            if toks != witness[i]:
+                mismatches.append(f"stream {i} ({len(prompts[i])} tokens) "
+                                  f"differs from serve_stream's: {toks[:8]} "
+                                  f"vs {witness[i][:8]}")
+        before = dec.call("stats")["serve"]["prefix"]
+        i = PROMPT_LENS.index(MAX_PROMPT)
+        repeat, _ = _streams_four_at_a_time(handle, [prompts[i]])
+        after = dec.call("stats")["serve"]
+        if repeat[0][0] != witness[i]:
+            mismatches.append("the repeated prompt's tokens differ")
+        hit = {"hits": after["prefix"]["hits"] - before["hits"],
+               "misses": after["prefix"]["misses"] - before["misses"]}
+        if hit != {"hits": 1, "misses": 0}:
+            failures.append(f"the repeated prompt: {hit}")
+        rows = {"prefill": _process_row(pre.call("stats")),
+                "decode": _process_row(dec.call("stats")),
+                "ingress": _process_row(ing.call("stats"))}
+        if rows["ingress"]["cuda_initialized"]:
+            failures.append("the ingress started CUDA")
+        if rows["prefill"]["card"] == rows["decode"]["card"]:
+            failures.append(f"prefill and decode share card "
+                            f"{rows['prefill']['card']}")
+        if rows["prefill"]["k1_launches"] != cfg.n_layers * 2 * len(prompts) \
+                or rows["decode"]["k1_launches"] != 0:
+            failures.append(f"K1 launches: {rows}")
+        handoff = {k: after["handoff"][k] - h0[k] for k in h0}
+        starts = {n: _starts(n) for n in (f"{name}-prefill",
+                                          f"{name}-decode", name)}
+    finally:
+        for n in (name, f"{name}-decode", f"{name}-prefill"):
+            serve.delete(n)
+    failures += mismatches
+    tokens = sum(len(t) for t, _ in runs)
+    gaps = _gaps_at_four(runs)
+    emit("serve_disagg", ran=True, ok=not failures, failures=failures,
+         model="llama3_8b", cards=cards, run_s=run_s, replicas=starts,
+         processes=rows, tokens_equal_serve_stream=not mismatches,
+         ttft=_ttft_rows(prompts, runs, prefill_ms),
+         cold_ttft_ms=[stamps[0] * 1e3 for _, stamps in cold],
+         repeat_ttft_ms=repeat[0][1][0] * 1e3, prefix_hit=hit,
+         prefix_cache=after["prefix"] | {"holders": None, "hot": None},
+         handoffs=handoff["n"], handoff_mb=handoff["bytes"] / 2 ** 20,
+         handoff_call_s=handoff["call_s"],
+         handoff_file_read_s=handoff["read_s"],
+         handoff_file_write_s=(w1["result_file_write_s"]
+                               - w0["result_file_write_s"]),
+         handoff_files_written_mb=(w1["result_file_mb"]
+                                   - w0["result_file_mb"]),
+         gap_ms_at_4_streams_median=(statistics.median(gaps)
+                                     if gaps else None),
+         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rows["prefill"]["k1_launches"] + rows["decode"]["k1_launches"]
 
 
 def _launch_counts(fa):
@@ -4021,6 +4412,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
         return 2
+    from ray_tpu_torch import serve
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve.llm_engine import bucket_len
 
@@ -4038,9 +4430,14 @@ def main() -> int:
     bwd_err = phase_kernel_check_bwd(fa, device)
     phase_sp_check(fa, device)
     gc_collect()
-    cfg, params, prompts, serve_launches, eng, tick_s = phase_slice(device)
-    phase_prefill_time(cfg, params, prompts, device)
+    cfg, params, prompts, outs, serve_launches, eng, tick_s = phase_slice(
+        device)
+    prefill_ms = phase_prefill_time(cfg, params, prompts, device)
     phase_profile(cfg, params, prompts, eng, tick_s, device)
+    serve_deploy = phase_serve_stream(cfg, prompts, outs, tick_s, prefill_ms)
+    serve_deploy += phase_serve_batch(cfg, params, device)
+    serve_deploy += phase_serve_disagg(cfg, prompts, outs, prefill_ms)
+    serve.shutdown()
     # The serving model (16 GB) leaves the card before training starts.
     del cfg, params, eng
     gc_collect()
@@ -4078,11 +4475,13 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
-        "launches": (serve_launches + train_launches["flash_fwd"]
+        "launches": (serve_launches + serve_deploy
+                     + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
                      + data_launches + glue_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
+                             "serve_deploy": serve_deploy,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,

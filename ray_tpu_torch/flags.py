@@ -51,6 +51,54 @@ _define("RTPU_DATA_FT_RETRIES", int, 3,
         "before the stage raises.")
 
 
+# -- serve: deadlines, admission control, circuit breaking -------------------
+_define("RTPU_SERVE_ADMISSION", bool, True,
+        "Overload protection in the serve router: bounded per-deployment "
+        "queues (shed with BackPressureError), per-replica circuit "
+        "breakers the power-of-two picker skips, and a retry budget "
+        "capped as a fraction of admitted traffic. 0 restores the "
+        "unbounded-queue router; the router then reads the flag once "
+        "per request.")
+_define("RTPU_SERVE_MAX_QUEUED", int, 100,
+        "Default per-deployment queued-request bound (queued = accepted "
+        "by routers beyond the replicas' max_ongoing_requests capacity) "
+        "when the deployment does not set max_queued_requests. -1 means "
+        "unbounded.")
+_define("RTPU_SERVE_READY_TIMEOUT_S", float, 60.0,
+        "How long serve.run() waits for a deployment's replicas to become "
+        "ready before raising.")
+_define("RTPU_SERVE_BREAKER_THRESHOLD", int, 5,
+        "Consecutive failures/timeouts on one replica before its circuit "
+        "breaker opens and the router routes around it.")
+_define("RTPU_SERVE_BREAKER_COOLDOWN_S", float, 5.0,
+        "How long an open replica breaker waits before letting one "
+        "half-open probe request through.")
+_define("RTPU_SERVE_RETRY_BUDGET", float, 0.2,
+        "Retry budget as a fraction of admitted traffic: each admitted "
+        "request earns this many retry tokens (bucket capped at 10x), "
+        "each retry spends one. Prevents retry amplification during an "
+        "outage.")
+
+# -- serve: disaggregated LLM plane (prefill/decode pools, prefix cache) -----
+_define("RTPU_SERVE_DISAGG", bool, True,
+        "Disaggregated LLM serving: build_disagg_llm_deployment splits "
+        "prefill and decode into separate replica pools with a K/V "
+        "handoff between them (a file). 0 collapses the builder to the "
+        "unified continuous-batching deployment (identical request/"
+        "response behavior, one pool).")
+_define("RTPU_SERVE_DISAGG_RETRIES", int, 3,
+        "How many times the disagg ingress re-dispatches a token stream "
+        "to another decode replica after a mid-stream replica failure "
+        "before surfacing the error to the client.")
+_define("RTPU_PREFIX_CACHE", bool, True,
+        "Decode-replica prefix cache: prefilled K/V keyed by token-prefix "
+        "hash stays resident (LRU by KV bytes), so repeated prompts skip "
+        "prefill entirely. 0 disables lookup and insert.")
+_define("RTPU_PREFIX_CACHE_MAX_MB", float, 256.0,
+        "Per-replica prefix-cache budget in MiB of cached K/V (+logits) "
+        "bytes; least-recently-used entries evict past it.")
+
+
 def get(name: str) -> Any:
     """Read a registered flag from the environment (call-time), else its
     registered default."""

@@ -20,8 +20,8 @@ slot and the tick never checks for overflow. A splice fully re-initialises
 a slot on attach.
 
 The cluster-facing parts of the JAX engine (trace hops, the serve metrics
-instruments, the stall event) go through one hook, :func:`_serve_hook`,
-which the serve slice of the port connects; until then it does nothing.
+instruments, the stall event) go through one hook, :func:`_serve_hook`;
+the port has no trace or metrics plane yet, so it does nothing.
 The engine-local token timeline (``token_stats``, ``last_token_age``) is
 kept here.
 
@@ -52,7 +52,8 @@ def _serve_hook(kind: str, **fields: Any) -> None:
     """The engine's one seam to the serving cluster: the trace hops
     (``prefill``, ``engine_attach``), the serve metrics (``ttft``,
     ``tokens``, ``slots_busy``, ``itl``) and the stall event (``stall``).
-    A no-op until the serve slice of the port connects it."""
+    A no-op until the port has a trace and metrics plane (serve/trace.py
+    is a later slice)."""
 
 
 # Per-request token-timestamp ring capacity and the bounded finished-stats
@@ -177,8 +178,10 @@ class ContinuousBatchingEngine:
         self._token_stats_done: "collections.OrderedDict[int, Dict]" = \
             collections.OrderedDict()
         self._stall_flagged: set = set()
-        # Submitters blocked waiting for a slot (queue-depth signal).
+        # Submitters blocked waiting for a slot (queue-depth signal), and
+        # the decode steps run so far.
         self._waiting = 0
+        self.ticks = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------- device work
@@ -492,6 +495,7 @@ class ContinuousBatchingEngine:
             nxt, _logits, cache = self._tick(
                 self.params, self.cache, self.cur_tok, self.temp)
             nxt_host = nxt.cpu().tolist()
+            self.ticks += 1
             self.cache = cache
             self.cur_tok = nxt
             emitted = 0

@@ -71,16 +71,52 @@ def dumps(obj: Any, what: str, where: str, hint: str) -> bytes:
             f"classes go by pickle, by reference: {hint}") from e
 
 
+def _tensor_from_numpy(arr, dtype: str):
+    import torch
+
+    t = torch.from_numpy(arr)
+    return t.view(getattr(torch, dtype)) if dtype else t
+
+
+class _TensorPickler(pickle.Pickler):
+    """Pickles a CPU tensor (no grad) as its numpy view, so its bytes go
+    out of band like an array's; bfloat16, which numpy lacks, as int16
+    bits."""
+
+    def reducer_override(self, obj):
+        torch = sys.modules.get("torch")
+        if (torch is None or type(obj) is not torch.Tensor
+                or obj.device.type != "cpu" or obj.requires_grad):
+            return NotImplemented
+        t = obj.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            return _tensor_from_numpy, (t.view(torch.int16).numpy(),
+                                        "bfloat16")
+        return _tensor_from_numpy, (t.numpy(), "")
+
+
+def _dumps_oob(obj: Any, bufs: List[pickle.PickleBuffer],
+               tensors: bool) -> bytes:
+    if not tensors:
+        return pickle.dumps(obj, protocol=5, buffer_callback=bufs.append)
+    import io as _io
+
+    f = _io.BytesIO()
+    _TensorPickler(f, protocol=5, buffer_callback=bufs.append).dump(obj)
+    return f.getvalue()
+
+
 class Spilled:
     """An object written to a file, for the other side of a pipe: its
     arrays' bytes go out of band (pickle protocol 5) in one write, and
     come back in one read into one buffer that the arrays then share; the
-    pipe carries this handle. The reader removes the file."""
+    pipe carries this handle. The reader removes the file. With
+    ``tensors``, CPU tensors go out of band too (as numpy views: without
+    their autograd state, each its own contiguous copy)."""
 
-    def __init__(self, path: str, obj: Any):
+    def __init__(self, path: str, obj: Any, tensors: bool = False):
         bufs: List[pickle.PickleBuffer] = []
-        self.meta = pickle.dumps(obj, protocol=5,
-                                 buffer_callback=bufs.append)
+        self.meta = _dumps_oob(obj, bufs, tensors)
         raws = [b.raw() for b in bufs]
         self.sizes = [r.nbytes for r in raws]
         self.path = path

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch import serve
+
 torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -63,8 +65,13 @@ def test_package_imports_without_jax_or_ray_tpu():
         "ray_tpu_torch.util.procs"} <= set(lines["NAMES"].split())
     assert {rl + "utils.actor_manager", "ray_tpu_torch.parallel.collectives"
             } <= set(lines["NAMES"].split())
+    assert {"ray_tpu_torch.serve." + m for m in SERVE_MODULES} <= set(
+        lines["NAMES"].split())
 
 
+SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
+                 "controller", "handle", "api", "llm", "prefix_cache",
+                 "disagg", "llm_engine")
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
                 "executor", "dataset", "iterator", "preprocessors")
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
@@ -470,3 +477,115 @@ def test_torch_trainer_refuses_before_any_spawn(monkeypatch):
     # Asked for explicitly, the CPU is taken: the spawn is reached.
     with pytest.raises(AssertionError, match="a worker was spawned"):
         TorchTrainer(_noop_loop, train_loop_config={}, device="cpu").fit()
+
+
+# Run as a file: a replica process runs it again as its main module, so
+# the blocks at the top hold in the replica too.
+_SERVE_SCRIPT = r"""
+import sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from ray_tpu_torch import serve
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+@serve.deployment
+class Leaked:
+    def __call__(self, names):
+        import importlib
+
+        for name in names:
+            importlib.import_module(name)
+        return leaked()
+
+
+if __name__ == "__main__":
+    import multiprocessing
+
+    handle = serve.run(Leaked.bind())
+    try:
+        print("REPLICA", handle.remote({names!r}).result(timeout=60))
+        _, (rep,) = serve.controller._local.get_replicas("Leaked")
+        info = rep.call("stats")["process"]
+        print("REPLICA_CUDA", info["cuda_initialized"], info["num_threads"])
+    finally:
+        serve.shutdown()
+    print("CHILDREN", multiprocessing.active_children())
+    print("DRIVER", leaked())
+"""
+
+
+def test_serve_replica_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
+    """A CPU replica process imports every module of the Serve layer with
+    jax, the JAX package and cloudpickle blocked, imports none of them,
+    runs torch on one thread and never starts CUDA; shutdown leaves no
+    child process."""
+    names = ["ray_tpu_torch.serve." + m for m in SERVE_MODULES]
+    script = tmp_path / "serve_imports.py"
+    script.write_text(_SERVE_SCRIPT.format(repo=str(REPO), names=names))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    for want in ("REPLICA []", "REPLICA_CUDA False 1", "CHILDREN []",
+                 "DRIVER []"):
+        assert want in lines, (want, proc.stdout, proc.stderr[-3000:])
+
+
+def test_serve_refuses_before_any_spawn(monkeypatch):
+    """The LLM builders take a card a replica by default (num_gpus=1):
+    with no CUDA, or with too few cards, they raise before any replica
+    is spawned, as serve.run does for a deployment asking for a card; a
+    nested class or a lambda among the bind arguments raises before any
+    spawn, naming itself."""
+    from ray_tpu_torch.models.configs import llama_tiny
+    from ray_tpu_torch.serve import controller
+    from ray_tpu_torch.serve.disagg import build_disagg_llm_deployment
+    from ray_tpu_torch.serve.llm import (build_llm_deployment,
+                                         build_streaming_llm_deployment)
+    from ray_tpu_torch.util import procs
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a replica was spawned")
+
+    monkeypatch.setattr(procs, "Worker", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama_tiny(dtype=torch.float32)
+    for build in (build_llm_deployment, build_streaming_llm_deployment,
+                  build_disagg_llm_deployment):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(cfg, _noop_loop)
+    gpu = serve.deployment(ray_actor_options={"num_gpus": 1})(_noop_loop)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.run(gpu.bind())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 replicas need 2 cards"):
+        build_disagg_llm_deployment(cfg, _noop_loop)
+    with pytest.raises(ValueError, match="2 replicas need 2 cards"):
+        build_streaming_llm_deployment(cfg, _noop_loop, num_replicas=2)
+
+    class Nested:
+        pass
+
+    with pytest.raises(TypeError, match="Nested.*defined inside a function"):
+        serve.run(serve.deployment(Nested).bind())
+    with pytest.raises(TypeError, match="argument 0 <function"):
+        serve.run(serve.deployment(_Plain).bind(lambda: 0))
+    # Asked for the CPU, the spawn is reached.
+    with pytest.raises(AssertionError, match="a replica was spawned"):
+        serve.run(build_streaming_llm_deployment(cfg, _noop_loop,
+                                                 num_gpus=0).bind())
+    serve.shutdown()
+    assert controller._local is None
+
+
+class _Plain:
+    def __init__(self, fn):
+        self.fn = fn
