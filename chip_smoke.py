@@ -52,6 +52,14 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    more, one closed after 3 tokens, whose slot must be free before the
    engine's next decode step ends; TTFT beside the in-process prefill,
    the gap between tokens at 4 streams beside the in-process tick),
+   then, on the same replica, ``serve_http`` (the HTTP proxy that
+   ``serve.run(..., _http=True, http_port=0)`` started: the prompts
+   streamed four at a time with urllib, chunk by chunk, tokens equal to
+   the witness's; one connection closed after 3 tokens, its slot free
+   within one decode step; a 1 ms deadline answered 504; TTFT and the
+   gap through HTTP beside the handle's) and ``serve_grpc`` (one prompt
+   through the gRPC proxy's CallStream where ``grpc`` imports, else a
+   line saying why it did not run),
    ``serve_batch`` (the ``@batch`` deployment: four prompts of 1100-2048
    tokens sent at once, twice, each one's tokens equal to an in-process
    ``generate_ragged`` over the same rows, the batch sizes formed) and,
@@ -59,9 +67,18 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    card, the decode pool on another, the ingress on the CPU without
    CUDA: the slice's prompts, tokens equal to serve_stream's; the
    2048-token prompt again, a prefix-cache hit; the K/V handoff files'
-   MB and seconds). Each prints its replicas' spawn seconds, K1 launches
-   (32 a prefill) and peak memory; on one card ``serve_disagg`` prints
-   that it did not run. ``tools/serve_phases.py`` runs them alone.
+   MB and seconds), ``serve_multiplex`` (a ``@serve.multiplexed``
+   loader keeping two Llama-3-8B models a replica, ids A, B, A, C: A's
+   tokens those of the same function in process, three loads, B evicted
+   and the replica's memory at most two models plus 2 GiB after C) and
+   ``serve_autoscale`` (the streaming deployment under a
+   ``scaling_policy``: 8 streams at once until the target reaches 2; on
+   one card the second replica stays pending and idle brings the target
+   back to 1; with two cards it spawns on card 1 and idle drains it with
+   no stream cut; every stream the witness's tokens). Each prints its
+   replicas' spawn seconds, K1 launches (32 a prefill) and peak memory;
+   on one card ``serve_disagg`` prints that it did not run.
+   ``tools/serve_phases.py`` runs them alone.
 5. ``train``: the training main path. ``bench_350m(remat=True,
    remat_policy="dots")`` at full width and depth (f32 params, bf16
    compute) through ``transformer_train_step`` with the default AdamW:
@@ -955,9 +972,12 @@ def phase_profile(cfg, params, prompts, eng, tick_s, device):
 
 class SeededLlama:
     """The serve phases' params factory, run in the replica process:
-    Llama-3-8B in bf16 from SEED on the replica's card, as phase_slice
-    makes the witness's (the same seed on a card of the same kind gives
-    the same weights)."""
+    Llama-3-8B in bf16 from ``seed`` (SEED by default) on the replica's
+    card, as phase_slice makes the witness's (the same seed on a card of
+    the same kind gives the same weights)."""
+
+    def __init__(self, seed=SEED):
+        self.seed = seed
 
     def __call__(self):
         import torch
@@ -968,10 +988,11 @@ class SeededLlama:
 
         dev = resolve_device(None)
         return init_params(llama3_8b(param_dtype=torch.bfloat16),
-                           torch.Generator(device=dev).manual_seed(SEED), dev)
+                           torch.Generator(device=dev).manual_seed(self.seed),
+                           dev)
 
 
-def _serve_run(app):
+def _serve_run(app, **run_kwargs):
     """serve.run with a ready timeout that an 8B init leaves room for;
     returns (handle, seconds)."""
     from ray_tpu_torch import flags, serve
@@ -979,7 +1000,7 @@ def _serve_run(app):
     t0 = time.perf_counter()
     with flags.scoped({"RTPU_SERVE_READY_TIMEOUT_S":
                        str(SERVE_READY_TIMEOUT_S)}):
-        handle = serve.run(app)
+        handle = serve.run(app, **run_kwargs)
     return handle, time.perf_counter() - t0
 
 
@@ -1066,21 +1087,30 @@ def _process_row(stats):
 
 def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
     """Llama-3-8B's streaming deployment with continuous batching on one
-    replica process (the card's first free one): PROMPT_LENS streamed
-    through the handle four at a time, each stream's greedy tokens equal
-    to the in-process engine's (phase_slice, the witness); then four
-    more, one closed after SERVE_CLOSE_AFTER tokens, whose slot must be
-    free before the engine's next decode step ends. A first round, one
-    token a prompt, one prompt at a time, meets each prefill shape once
-    (its TTFT is the cold one). Returns the replica's K1 launches."""
+    replica process (the card's first free one), behind the HTTP proxy
+    and, where ``grpc`` imports, the gRPC proxy (both on free ports):
+    PROMPT_LENS streamed through the handle four at a time, each stream's
+    greedy tokens equal to the in-process engine's (phase_slice, the
+    witness); then four more, one closed after SERVE_CLOSE_AFTER tokens,
+    whose slot must be free before the engine's next decode step ends. A
+    first round, one token a prompt, one prompt at a time, meets each
+    prefill shape once (its TTFT is the cold one). Then, on the same
+    replica, serve_http and serve_grpc. Returns the replica's K1
+    launches."""
     from ray_tpu_torch import serve
 
+    try:
+        import grpc  # noqa: F401 — only whether it imports
+        grpc_missing = None
+    except ImportError as e:
+        grpc_missing = f"import grpc failed on this machine: {e}"
     name = "serve-stream"
     app = serve.build_streaming_llm_deployment(
         cfg, SeededLlama(), name=name, max_prompt_len=MAX_PROMPT,
         max_new_tokens=MAX_NEW, continuous_batching=True,
         num_slots=NUM_SLOTS)
-    handle, run_s = _serve_run(app.bind())
+    handle, run_s = _serve_run(app.bind(), _http=True, http_port=0,
+                               _grpc=grpc_missing is None, grpc_port=0)
     failures, mismatches = [], []
     try:
         (rep,) = _replicas(name)
@@ -1117,25 +1147,30 @@ def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
                             f"times for {prefills} prefills of "
                             f"{cfg.n_layers} layers")
         starts = _starts(name)
+        failures += mismatches
+        tokens = sum(len(t) for t, _ in runs)
+        handle_ttft = _ttft_rows(prompts, runs, prefill_ms)
+        gap_ms = statistics.median(gaps) if gaps else None
+        emit("serve_stream", ok=not failures, failures=failures,
+             model="llama3_8b", num_slots=NUM_SLOTS, run_s=run_s,
+             replicas=starts, replica=proc,
+             streams=len(cold) + len(runs) + len(more),
+             tokens_equal_witness=not mismatches, ttft=handle_ttft,
+             cold_ttft_ms=[stamps[0] * 1e3 for _, stamps in cold],
+             gap_ms_at_4_streams_median=gap_ms,
+             gaps_at_4_streams=len(gaps),
+             in_process_tick_ms_4_slots=tick_s * 1e3,
+             wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+             closed_stream=cancels)
+        if failures:
+            raise AssertionError("; ".join(failures))
+        launches = proc["k1_launches"]
+        launches += phase_serve_http(cfg, prompts, witness, rep, tick_s,
+                                     handle_ttft, gap_ms)
+        launches += phase_serve_grpc(prompts, witness, rep, grpc_missing)
     finally:
         serve.delete(name)
-    failures += mismatches
-    tokens = sum(len(t) for t, _ in runs)
-    emit("serve_stream", ok=not failures, failures=failures, model="llama3_8b",
-         num_slots=NUM_SLOTS, run_s=run_s, replicas=starts, replica=proc,
-         streams=len(cold) + len(runs) + len(more),
-         tokens_equal_witness=not mismatches,
-         ttft=_ttft_rows(prompts, runs, prefill_ms),
-         cold_ttft_ms=[stamps[0] * 1e3 for _, stamps in cold],
-         gap_ms_at_4_streams_median=(statistics.median(gaps)
-                                     if gaps else None),
-         gaps_at_4_streams=len(gaps),
-         in_process_tick_ms_4_slots=tick_s * 1e3,
-         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
-         closed_stream=cancels)
-    if failures:
-        raise AssertionError("; ".join(failures))
-    return proc["k1_launches"]
+    return launches
 
 
 def phase_serve_batch(cfg, params, device):
@@ -1306,6 +1341,474 @@ def phase_serve_disagg(cfg, prompts, witness, prefill_ms):
     if failures:
         raise AssertionError("; ".join(failures))
     return rows["prefill"]["k1_launches"] + rows["decode"]["k1_launches"]
+
+
+# ------------------------------------------------- serve ingress phases
+
+
+def _proxy_port(kind):
+    from ray_tpu_torch.serve import api
+
+    return (api._proxy if kind == "http" else api._grpc_proxy).port
+
+
+def _http_stream(port, prompt, close_after=None, timeout_s=None):
+    """One stream through the HTTP proxy, read chunk by chunk (a token a
+    line): its tokens and each token's seconds since the request; the
+    connection is closed after ``close_after`` tokens."""
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if timeout_s is not None:
+        headers["X-Request-Timeout-S"] = str(timeout_s)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/",
+                                 data=json.dumps({"tokens": prompt}).encode(),
+                                 headers=headers)
+    t0 = time.perf_counter()
+    toks, stamps = [], []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            chunk = json.loads(line)
+            if "token" not in chunk:
+                raise AssertionError(f"stream answered {chunk}")
+            stamps.append(time.perf_counter() - t0)
+            toks.append(chunk["token"])
+            if close_after is not None and len(toks) == close_after:
+                break
+    return toks, stamps
+
+
+def _http_four_at_a_time(port, prompts, close_after=None):
+    from concurrent.futures import ThreadPoolExecutor
+
+    close_after = close_after or {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(NUM_SLOTS) as ex:
+        futs = [ex.submit(_http_stream, port, p, close_after.get(i))
+                for i, p in enumerate(prompts)]
+        runs = [f.result() for f in futs]
+    return runs, time.perf_counter() - t0
+
+
+def _k1(rep):
+    return _process_row(rep.call("stats"))["k1_launches"]
+
+
+def phase_serve_http(cfg, prompts, witness, rep, tick_s, handle_ttft,
+                     handle_gap_ms):
+    """serve_stream's replica behind the HTTP proxy (``serve.run(...,
+    _http=True, http_port=0)``): PROMPT_LENS streamed four at a time with
+    urllib, read chunk by chunk, each stream the witness's tokens; four
+    more with one connection closed after SERVE_CLOSE_AFTER tokens, whose
+    slot must be free within one decode step of the cancel; a request
+    with X-Request-Timeout-S 0.001 answered 504. TTFT and the gap between
+    tokens through HTTP beside the handle's and the in-process prefill
+    and tick. Returns the replica's K1 launches in this phase."""
+    import urllib.error
+
+    port = _proxy_port("http")
+    failures, mismatches = [], []
+    k0 = _k1(rep)
+    cancels0 = len(rep.call("stats")["serve"]["cancels"])
+    runs, wall = _http_four_at_a_time(port, prompts)
+    for i, (toks, _) in enumerate(runs):
+        if toks != witness[i]:
+            mismatches.append(f"HTTP stream {i} differs from the witness: "
+                              f"{toks[:8]} vs {witness[i][:8]}")
+    gaps = _gaps_at_four(runs)
+    again = [prompts[0], prompts[1], prompts[2], prompts[5]]
+    more, _ = _http_four_at_a_time(port, again, {0: SERVE_CLOSE_AFTER})
+    wants = [witness[0][:SERVE_CLOSE_AFTER], witness[1], witness[2],
+             witness[5]]
+    for (toks, _), want in zip(more, wants):
+        if toks != want:
+            mismatches.append(f"HTTP second round differs: {toks[:8]} vs "
+                              f"{want[:8]}")
+    deadline = time.time() + 30
+    while True:
+        serve_stats = rep.call("stats")["serve"]
+        closed = serve_stats["cancels"][cancels0:]
+        if (closed and serve_stats["slots_busy"] == 0) \
+                or time.time() > deadline:
+            break
+        time.sleep(0.05)
+    if len(closed) != 1 or closed[0]["ticks_until_free"] > 1:
+        failures.append(f"the closed connection's slot: {closed}")
+    if serve_stats["slots_busy"] != 0:
+        failures.append(f"slots busy after every stream ended: "
+                        f"{serve_stats}")
+    launches = _k1(rep) - k0
+    prefills = len(prompts) + len(again)
+    if launches != cfg.n_layers * prefills:
+        failures.append(f"K1 launched {launches} times for {prefills} "
+                        f"prefills")
+    t = time.perf_counter()
+    try:
+        _http_stream(port, prompts[0], timeout_s=0.001)
+        code = 200
+    except urllib.error.HTTPError as e:
+        code = e.code
+    deadline_s = time.perf_counter() - t
+    if code != 504:
+        failures.append(f"an expired deadline answered {code}, not 504")
+    # The expired request may have been prefilled before its deadline
+    # was seen: its launches count too.
+    launches = _k1(rep) - k0
+    failures += mismatches
+    tokens = sum(len(t) for t, _ in runs)
+    emit("serve_http", ok=not failures, failures=failures, model="llama3_8b",
+         port=port, streams=len(runs) + len(more),
+         tokens_equal_witness=not mismatches,
+         ttft=[dict(row, http_ttft_ms=stamps[0] * 1e3)
+               for row, (_, stamps) in zip(handle_ttft, runs)],
+         gap_ms_at_4_streams_median=(statistics.median(gaps)
+                                     if gaps else None),
+         handle_gap_ms_at_4_streams_median=handle_gap_ms,
+         in_process_tick_ms_4_slots=tick_s * 1e3,
+         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+         closed_connection=closed, deadline_status=code,
+         deadline_answer_s=deadline_s, k1_launches=launches)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def phase_serve_grpc(prompts, witness, rep, grpc_missing):
+    """One prompt through the gRPC proxy's CallStream on serve_stream's
+    replica, the witness's tokens. Where ``grpc`` does not import, one
+    line says that it did not run and why. Returns the K1 launches."""
+    if grpc_missing is not None:
+        emit("serve_grpc", ran=False, reason=grpc_missing)
+        return 0
+    import grpc
+
+    port = _proxy_port("grpc")
+    k0 = _k1(rep)
+    i = 1
+    t0 = time.perf_counter()
+    toks, stamps = [], []
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_stream(
+            "/rtpu.serve/CallStream",
+            request_serializer=lambda o: json.dumps(o).encode(),
+            response_deserializer=lambda b: json.loads(b.decode()))
+        for msg in call({"route": "/", "input": {"tokens": prompts[i]},
+                         "request_id": "smoke-grpc"}, timeout=600):
+            toks.append(msg["item"]["token"])
+            stamps.append(time.perf_counter() - t0)
+    launches = _k1(rep) - k0
+    ok = toks == witness[i]
+    emit("serve_grpc", ran=True, ok=ok, model="llama3_8b", port=port,
+         prompt_len=len(prompts[i]), tokens_equal_witness=ok,
+         ttft_ms=stamps[0] * 1e3,
+         gap_ms_median=statistics.median(
+             (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])),
+         k1_launches=launches)
+    if not ok:
+        raise AssertionError(f"the gRPC stream differs from the witness: "
+                             f"{toks[:8]} vs {witness[i][:8]}")
+    return launches
+
+
+# -------------------------------------------- serve multiplex, autoscale
+
+# serve_multiplex: a replica keeps MUX_MODELS Llama-3-8B models; a call
+# generates MUX_NEW tokens greedily after MUX_PROMPT_LEN prompt tokens.
+MUX_MODELS, MUX_NEW, MUX_PROMPT_LEN = 2, 32, 128
+MUX_IDS = ("seed-0", "seed-1", "seed-0", "seed-2")  # A (SEED), B, A, C
+# serve_autoscale: the pool's policy and the streams started at once.
+AUTOSCALE_POLICY = {"min_replicas": 1, "max_replicas": 2,
+                    "queue_depth_high": 2, "occupancy_high": 0.95,
+                    "up_for_s": 2, "down_for_s": 5, "cooldown_s": 0}
+AUTOSCALE_STREAMS = 8
+
+
+def mux_generate(params, prompt, max_new_tokens):
+    """The multiplexed deployment's work: Llama-3-8B's greedy
+    ``generate`` of one prompt, on the params' card."""
+    import torch
+
+    from ray_tpu_torch.models.configs import llama3_8b
+    from ray_tpu_torch.models.generate import generate
+
+    dev = params["embed"].device
+    out = generate(params, torch.tensor([prompt], device=dev),
+                   llama3_8b(param_dtype=torch.bfloat16), max_new_tokens)
+    return out[0, len(prompt):].tolist()
+
+
+class MuxLlama:
+    """The serve_multiplex replica: ``@serve.multiplexed`` (its function
+    form, over this instance's loader) keeps MUX_MODELS models; model id
+    "seed-N" is Llama-3-8B in bf16 from seed N on the replica's card."""
+
+    def __init__(self):
+        from ray_tpu_torch import serve
+
+        self.loads = []
+        self.get_model = serve.multiplexed(
+            max_num_models_per_replica=MUX_MODELS)(self._load)
+
+    def _load(self, model_id):
+        import torch
+
+        t = time.perf_counter()
+        params = SeededLlama(int(model_id.split("-")[1]))()
+        torch.cuda.synchronize()
+        self.loads.append({"model": model_id,
+                           "s": time.perf_counter() - t})
+        return params
+
+    def __call__(self, prompt):
+        from ray_tpu_torch import serve
+
+        params = self.get_model(serve.get_multiplexed_model_id())
+        return {"tokens": mux_generate(params, prompt, MUX_NEW),
+                "loads": [row["model"] for row in self.loads]}
+
+    def memory(self):
+        import gc
+
+        import torch
+
+        gc.collect()
+        return {"allocated": torch.cuda.memory_allocated(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "loads": list(self.loads)}
+
+
+def phase_serve_multiplex(cfg, params):
+    """One deployment (a card) whose multiplexed loader keeps MUX_MODELS
+    Llama-3-8B models: ids A (the witness's seed), B, A, C. A's tokens
+    equal mux_generate on the in-process params; four calls make three
+    loads (the second A is not reloaded); after C loads, B is evicted and
+    the replica's allocated memory is at most two models plus 2 GiB.
+    Returns the replica's K1 launches."""
+    import numpy as np
+
+    from ray_tpu_torch import serve
+
+    prompt = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, MUX_PROMPT_LEN).tolist()
+    t = time.perf_counter()
+    witness = mux_generate(params, prompt, MUX_NEW)
+    witness_s = time.perf_counter() - t
+    model_bytes = sum(
+        v.numel() * v.element_size()
+        for leaf in params.values()
+        for v in (leaf.values() if isinstance(leaf, dict) else [leaf]))
+    name = "serve-multiplex"
+    dep = serve.deployment(name=name,
+                           ray_actor_options={"num_gpus": 1})(MuxLlama)
+    handle, run_s = _serve_run(dep.bind())
+    failures = []
+    try:
+        (rep,) = _replicas(name)
+        calls, a_equal = [], None
+        for mid in MUX_IDS:
+            t = time.perf_counter()
+            out = handle.options(multiplexed_model_id=mid).remote(
+                prompt).result(timeout=600)
+            calls.append({"model": mid, "s": time.perf_counter() - t,
+                          "loads": out["loads"]})
+            if mid == MUX_IDS[0]:
+                a_equal = out["tokens"] == witness
+                if not a_equal:
+                    failures.append(f"{mid}'s tokens differ from the "
+                                    f"in-process run: {out['tokens'][:8]} "
+                                    f"vs {witness[:8]}")
+        mem = rep.handle_request("memory")
+        loads = [row["model"] for row in mem["loads"]]
+        if loads != [MUX_IDS[0], MUX_IDS[1], MUX_IDS[3]]:
+            failures.append(f"loads {loads} for calls {list(MUX_IDS)}")
+        bound = MUX_MODELS * model_bytes + 2 * 2 ** 30
+        if mem["allocated"] > bound:
+            failures.append(f"{mem['allocated']} bytes allocated after the "
+                            f"eviction, above {bound}")
+        proc = _process_row(rep.call("stats"))
+        if proc["k1_launches"] != cfg.n_layers * len(MUX_IDS):
+            failures.append(f"K1 launched {proc['k1_launches']} times for "
+                            f"{len(MUX_IDS)} prefills")
+    finally:
+        serve.delete(name)
+    emit("serve_multiplex", ok=not failures, failures=failures,
+         model="llama3_8b", models_a_replica=MUX_MODELS,
+         prompt_len=MUX_PROMPT_LEN, max_new_tokens=MUX_NEW, run_s=run_s,
+         calls=calls, loads=mem["loads"],
+         a_tokens_equal_in_process=a_equal,
+         in_process_s=witness_s, model_gib=model_bytes / 2 ** 30,
+         allocated_gib_after_eviction=mem["allocated"] / 2 ** 30,
+         bound_gib=bound / 2 ** 30, peak_gib=mem["peak"] / 2 ** 30,
+         replica=proc)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return proc["k1_launches"]
+
+
+def _autoscale_round(handle, prompts, witness, n, stats, watch=None):
+    """``n`` greedy streams of the witness's prompts started at once; while
+    they run, ``watch(stats())`` every 0.1 s. Returns the streams'
+    (tokens, want) pairs; a stream that raised has its error in place of
+    its tokens, so every failure of the round is reported."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(n) as ex:
+        futs = [ex.submit(_stream, handle, prompts[i % len(prompts)])
+                for i in range(n)]
+        while watch is not None and not all(f.done() for f in futs):
+            watch(stats())
+            time.sleep(0.1)
+        out = []
+        for i, f in enumerate(futs):
+            try:
+                toks = f.result()[0]
+            except Exception as e:  # noqa: BLE001 — reported as a failure
+                toks = f"{type(e).__name__}: {str(e)[:400]}"
+            out.append((toks, witness[i % len(prompts)]))
+        return out
+
+
+def _errors(streams):
+    """The distinct errors of the streams that raised (at most 4)."""
+    return sorted({toks for toks, _ in streams if isinstance(toks, str)})[:4]
+
+
+def phase_serve_autoscale(cfg, prompts, witness):
+    """The streaming deployment (continuous batching, NUM_SLOTS slots)
+    under AUTOSCALE_POLICY: rounds of AUTOSCALE_STREAMS streams started
+    at once until the target reaches 2. On one card the second replica
+    stays pending (no spawn tried, no error) and idle brings the target
+    back to 1 with nothing pending; with two cards or more the rounds go
+    on until the second replica, spawned on card 1, is ready and streams
+    land on both, then idle (two streams at a time) drains the pool back
+    to one replica while streams keep running, none of them cut. Every
+    stream's tokens are the witness's. Returns the replicas' K1
+    launches."""
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import controller
+    from ray_tpu_torch.serve.handle import Router
+
+    cards = torch.cuda.device_count()
+    name = "serve-autoscale"
+    app = serve.build_streaming_llm_deployment(
+        cfg, SeededLlama(), name=name, max_prompt_len=MAX_PROMPT,
+        max_new_tokens=MAX_NEW, continuous_batching=True,
+        num_slots=NUM_SLOTS).options(scaling_policy=AUTOSCALE_POLICY)
+    handle, run_s = _serve_run(app.bind())
+    ctrl = controller._local
+
+    def stats():
+        return ctrl.get_serve_stats()[name]
+
+    def wait(cond, timeout_s):
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            st = stats()
+            if cond(st):
+                return st
+            time.sleep(0.1)
+        raise AssertionError(f"{name}: timed out; {stats()}")
+
+    failures, streams, seen = [], [], {"pending": 0}
+    times = {}
+    per_replica = {}
+    t0 = time.perf_counter()
+
+    def watch(st):
+        seen["pending"] = max(seen["pending"], st["pending"])
+        if st["target"] >= 2 and "target_2_s" not in times:
+            times["target_2_s"] = time.perf_counter() - t0
+            seen["at_target_2"] = dict(st)
+        if st["ready"] >= 2 and "second_ready_s" not in times:
+            times["second_ready_s"] = time.perf_counter() - t0
+
+    try:
+        while "target_2_s" not in times and time.perf_counter() - t0 < 90:
+            streams += _autoscale_round(handle, prompts, witness,
+                                        AUTOSCALE_STREAMS, stats, watch)
+        if "target_2_s" not in times:
+            raise AssertionError(f"the target never reached 2: {stats()}; "
+                                 f"stream errors: {_errors(streams)}")
+        if cards < 2:
+            st = stats()
+            if not (st["pending"] == 1 and st["replicas"] == 1
+                    and st["spawned"] == 1):
+                failures.append(f"one card: not one replica and one "
+                                f"pending: {st}")
+            st = wait(lambda s: s["target"] == 1, 60)
+            times["idle_target_1_s"] = time.perf_counter() - t0
+            if st["pending"] != 0 or st["spawned"] != 1:
+                failures.append(f"idle on one card: {st}")
+        else:
+            # The pressure stays on until the second replica is ready, and
+            # until streams land on both (the handle's router reads the
+            # new replica set at its next refresh).
+            while "second_ready_s" not in times:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"no second replica: {stats()}; "
+                                         f"stream errors: {_errors(streams)}")
+                streams += _autoscale_round(handle, prompts, witness,
+                                            AUTOSCALE_STREAMS, stats, watch)
+            reps = _replicas(name)
+            before = {r.replica_id: r.call("stats")["total"] for r in reps}
+            t_both = time.perf_counter()
+            while not per_replica or min(per_replica.values()) == 0:
+                if time.perf_counter() - t_both > 4 * Router.REFRESH_PERIOD_S:
+                    break
+                streams += _autoscale_round(handle, prompts, witness,
+                                            AUTOSCALE_STREAMS, stats)
+                per_replica = {r.replica_id: r.call("stats")["total"]
+                               - before[r.replica_id] for r in reps}
+            if sorted(r.card for r in reps) != [0, 1]:
+                failures.append(f"replicas on cards "
+                                f"{[r.card for r in reps]}")
+            if min(per_replica.values()) == 0:
+                failures.append(f"streams a replica: {per_replica}")
+            # Idle (2 streams on 8 slots) while streams keep running: the
+            # drain must let every one of them finish.
+            t_drain = time.perf_counter()
+            while stats()["replicas"] != 1 or stats()["draining"] != 0:
+                if time.perf_counter() - t_drain > 120:
+                    raise AssertionError(f"never drained: {stats()}; "
+                                         f"stream errors: {_errors(streams)}")
+                streams += _autoscale_round(handle, prompts, witness, 2,
+                                            stats)
+            times["drained_s"] = time.perf_counter() - t0
+        last_error = ctrl.get_last_error(name)
+        if last_error is not None:
+            failures.append(f"a replica error was recorded: {last_error}")
+        launches = sum(_k1(r) for r in _replicas(name))
+        retired = ctrl.get_retired(name)
+        launches += sum((r["stats"].get("process", {}).get("launches") or {})
+                        .get("flash_fwd", 0) for r in retired)
+        starts = _starts(name)
+    finally:
+        serve.delete(name)
+    cut = [i for i, (toks, want) in enumerate(streams) if toks != want]
+    if cut:
+        failures.append(f"{len(cut)} of {len(streams)} streams differ from "
+                        f"the witness (first {cut[:4]}); errors: "
+                        f"{_errors(streams)}")
+    if launches != cfg.n_layers * len(streams):
+        failures.append(f"K1 launched {launches} times for {len(streams)} "
+                        f"streams")
+    emit("serve_autoscale", ok=not failures, failures=failures,
+         model="llama3_8b", cards=cards, policy=AUTOSCALE_POLICY,
+         run_s=run_s, streams=len(streams),
+         tokens_equal_witness=not cut, seconds=times,
+         at_target_2=seen.get("at_target_2"), max_pending=seen["pending"],
+         streams_a_replica=per_replica, replicas=starts,
+         retired=[{k: r[k] for k in ("replica_id", "card", "drain_s")}
+                  for r in retired],
+         k1_launches=launches)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
 
 
 def _launch_counts(fa):
@@ -4437,6 +4940,8 @@ def main() -> int:
     serve_deploy = phase_serve_stream(cfg, prompts, outs, tick_s, prefill_ms)
     serve_deploy += phase_serve_batch(cfg, params, device)
     serve_deploy += phase_serve_disagg(cfg, prompts, outs, prefill_ms)
+    serve_deploy += phase_serve_multiplex(cfg, params)
+    serve_deploy += phase_serve_autoscale(cfg, prompts, outs)
     serve.shutdown()
     # The serving model (16 GB) leaves the card before training starts.
     del cfg, params, eng

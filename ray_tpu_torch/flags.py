@@ -64,6 +64,12 @@ _define("RTPU_SERVE_MAX_QUEUED", int, 100,
         "by routers beyond the replicas' max_ongoing_requests capacity) "
         "when the deployment does not set max_queued_requests. -1 means "
         "unbounded.")
+_define("RTPU_SERVE_REQUEST_TIMEOUT_S", float, 60.0,
+        "Default end-to-end deadline for serve requests that do not carry "
+        "an explicit one (HTTP X-Request-Timeout-S header, gRPC envelope "
+        "timeout_s, or handle .options(deadline_s=...)). Expired work is "
+        "dropped with DeadlineExceededError at every queue boundary "
+        "instead of executing. <=0 means no default deadline.")
 _define("RTPU_SERVE_READY_TIMEOUT_S", float, 60.0,
         "How long serve.run() waits for a deployment's replicas to become "
         "ready before raising.")
@@ -93,10 +99,32 @@ _define("RTPU_SERVE_DISAGG_RETRIES", int, 3,
 _define("RTPU_PREFIX_CACHE", bool, True,
         "Decode-replica prefix cache: prefilled K/V keyed by token-prefix "
         "hash stays resident (LRU by KV bytes), so repeated prompts skip "
-        "prefill entirely. 0 disables lookup and insert.")
+        "prefill entirely. 0 disables lookup, insert, and the "
+        "controller-side cluster index.")
 _define("RTPU_PREFIX_CACHE_MAX_MB", float, 256.0,
         "Per-replica prefix-cache budget in MiB of cached K/V (+logits) "
         "bytes; least-recently-used entries evict past it.")
+_define("RTPU_PREFIX_CACHE_PROMOTE_HITS", int, 3,
+        "Cluster-index promotion threshold: once a prefix accumulates "
+        "this many cluster-wide hits, the serve controller has the "
+        "replicas that don't hold it yet pull it from a holder. <=0 "
+        "disables promotion.")
+
+# -- serve: scaling ----------------------------------------------------------
+_define("RTPU_SERVE_AUTOSCALE", bool, True,
+        "Signal-driven serve autoscaler: pool replica counts follow slot "
+        "occupancy and queue depth through the alert engine's "
+        "threshold+for-duration machinery for deployments that set a "
+        "scaling_policy. 0 freezes pools at their deployed size (the "
+        "queue-length autoscaling_config path is unaffected).")
+_define("RTPU_SERVE_DRAIN_DEADLINE_S", float, 30.0,
+        "Scale-down grace: a draining replica stops receiving new "
+        "requests at once (routers drop it at their next refresh) but is "
+        "only stopped once idle or after this many seconds, so in-flight "
+        "streams finish across a resize.")
+_define("RTPU_SERVE_SCALE_COOLDOWN_S", float, 5.0,
+        "Minimum seconds between two autoscaler actions on the same "
+        "deployment, bounding resize churn.")
 
 
 def get(name: str) -> Any:

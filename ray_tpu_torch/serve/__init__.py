@@ -6,25 +6,30 @@
 - the replica process and ``ReplicaActor`` -> replica.py
 - DeploymentHandle and the power-of-two Router -> handle.py
 - ``@serve.batch`` -> batching.py
-- serve.run / delete / status / shutdown -> api.py
+- serve.run / start / delete / status / shutdown -> api.py
+- the HTTP and gRPC ingresses -> proxy.py, grpc_proxy.py
+- the autoscalers -> autoscaler.py (``scaling_policy``) and the
+  controller (``autoscaling_config``, the drain, pending replicas)
+- ``@serve.multiplexed`` -> multiplex.py
 - the LLM deployments over models/generate.py -> llm.py, disagg.py,
   prefix_cache.py, llm_engine.py
 
-Left for a later slice: the HTTP and gRPC ingresses, the autoscalers,
-``@serve.multiplexed`` (the routing key ``multiplexed_model_id`` is in)
-and the trace plane.
+Left for a later slice: the trace plane (``serve/trace.py``) and the
+metrics plane it rides on.
 """
 import importlib
 
 from .admission import BackPressureError
 from .api import (delete, get_app_handle, get_deployment_handle, run,
                   shutdown, start, status)
+from .autoscaler import ScalingPolicy
 from .batching import batch
 from .context import (DeadlineExceededError, get_request_context,
                       remaining_s)
 from .deployment import Application, AutoscalingConfig, Deployment, deployment
 from .handle import (DeploymentHandle, DeploymentResponse,
                      DeploymentStreamingResponse)
+from .multiplex import get_multiplexed_model_id, multiplexed
 
 # The LLM side loads torch and the model layer (seconds): a replica of a
 # plain deployment, which imports this package, never pays for it.
@@ -55,6 +60,8 @@ __all__ = [
     "DeploymentHandle",
     "DeploymentResponse",
     "DeploymentStreamingResponse",
+    "get_multiplexed_model_id",
+    "multiplexed",
     "run",
     "start",
     "shutdown",
@@ -69,4 +76,5 @@ __all__ = [
     "ContinuousBatchingEngine",
     "PrefixCache",
     "prefix_key",
+    "ScalingPolicy",
 ]

@@ -27,8 +27,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 @dataclasses.dataclass
 class AutoscalingConfig:
-    """Queue-metric driven autoscaling (the controller's autoscaler is a
-    later slice: serve.run refuses a deployment that sets one)."""
+    """Queue-metric driven autoscaling: the controller steps the target
+    by one replica while ongoing requests a replica stay above
+    ``target_ongoing_requests`` for ``upscale_delay_s``, or below half of
+    it for ``downscale_delay_s``, within [min_replicas, max_replicas]."""
 
     min_replicas: int = 1
     max_replicas: int = 4
@@ -56,7 +58,8 @@ class DeploymentConfig:
     user_config: Optional[Dict[str, Any]] = None
     # The handler returns a generator; calls stream item by item.
     stream: bool = False
-    # Signal-driven autoscaling (a later slice, as autoscaling_config).
+    # Signal-driven autoscaling (serve/autoscaler.py ScalingPolicy
+    # fields): queue depth and slot occupancy move the target.
     scaling_policy: Optional[Dict[str, Any]] = None
     # Pool label for the disaggregated LLM plane ("prefill" | "decode").
     pool: Optional[str] = None

@@ -347,13 +347,19 @@ def build_disagg_llm_deployment(cfg, params_factory, *, name: str = "llm",
                                 max_new_tokens: int = 64,
                                 num_gpus: int = 1,
                                 quantize_int8: bool = False,
+                                prefill_scaling_policy: Optional[Dict] = None,
+                                decode_scaling_policy: Optional[Dict] = None,
                                 prefix_cache_mb: Optional[float] = None
                                 ) -> Application:
     """The disaggregated LLM application for ``serve.run``: its ingress
     speaks the same streamed {"tokens": [...]} -> {"token": id}* contract
     as ``build_streaming_llm_deployment``, which it degrades to when
     RTPU_SERVE_DISAGG=0. ``num_gpus=1`` (the default) gives each pool
-    replica a card: too few cards, or no CUDA, raise here."""
+    replica a card: too few cards, or no CUDA, raise here.
+
+    ``*_scaling_policy`` dicts (``serve/autoscaler.py`` ScalingPolicy
+    fields) put each pool under the signal-driven autoscaler; a pool
+    that grows past the free cards leaves its extra replicas pending."""
     if not flags.get("RTPU_SERVE_DISAGG"):
         return build_streaming_llm_deployment(
             cfg, params_factory, name=name, max_prompt_len=max_prompt_len,
@@ -367,7 +373,8 @@ def build_disagg_llm_deployment(cfg, params_factory, *, name: str = "llm",
     device = device_for(num_gpus)
     prefill = deployment(name=f"{name}-prefill",
                          num_replicas=num_prefill_replicas,
-                         ray_actor_options=opts, pool="prefill")(
+                         ray_actor_options=opts, pool="prefill",
+                         scaling_policy=prefill_scaling_policy)(
         PrefillWorker)
     decode = deployment(
         name=f"{name}-decode", num_replicas=num_decode_replicas,
@@ -375,7 +382,8 @@ def build_disagg_llm_deployment(cfg, params_factory, *, name: str = "llm",
         # slot wait (where they register as queue depth) instead of in
         # the replica's queue.
         max_ongoing_requests=max(64, 4 * num_slots), stream=True,
-        ray_actor_options=opts, pool="decode")(DecodeWorker)
+        ray_actor_options=opts, pool="decode",
+        scaling_policy=decode_scaling_policy)(DecodeWorker)
     ingress = deployment(name=name, stream=True,
                          max_ongoing_requests=64)(DisaggIngress)
     return ingress.bind(

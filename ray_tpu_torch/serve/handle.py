@@ -230,6 +230,9 @@ class Router:
         self._budget = admission.RetryBudget()
         self._max_ongoing = 16
         self._max_queued: Optional[int] = None
+        # Hot-prefix routing table from the controller's PrefixIndex:
+        # prefix hash -> replica ids already holding that prefix's K/V.
+        self._prefix_routes: Dict[str, List[str]] = {}
 
     def _ctrl(self):
         if self._controller is None:
@@ -261,6 +264,7 @@ class Router:
             mq = rcfg.get("max_queued_requests")
             self._max_queued = (flags.get("RTPU_SERVE_MAX_QUEUED")
                                 if mq is None else int(mq))
+            self._prefix_routes = rcfg.get("prefix_routes", {})
         self._board.prune([r.replica_id for r in replicas])
 
     def _breaker_filter(self, reps: List[ReplicaClient]
@@ -303,7 +307,9 @@ class Router:
     def _pick_affine(self, model_id: str, exclude: Optional[set] = None,
                      use_breaker: bool = False) -> ReplicaClient:
         """Model-affine pick: rendezvous hash over replicas, so one
-        model's (or prefix's) requests land where it is already loaded.
+        model's (or prefix's) requests land where it is already loaded;
+        where the controller's prefix index names live replicas that
+        hold this prefix's K/V, the hash runs over those alone.
         ``exclude`` holds replicas that already failed this call: the
         deterministic hash would otherwise retry the same dead one."""
         with self._lock:
@@ -315,6 +321,9 @@ class Router:
                 reps = self._breaker_filter(reps)
             if not reps:
                 raise RuntimeError(f"no replicas for {self.name}")
+            holders = self._prefix_routes.get(model_id)
+            if holders:
+                reps = [r for r in reps if r.replica_id in holders] or reps
             r = max(reps, key=lambda rep: hashlib.md5(
                 f"{model_id}|{rep.replica_id}".encode()).digest())
             self._inflight[r.replica_id] = self._inflight.get(

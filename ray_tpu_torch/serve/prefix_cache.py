@@ -13,8 +13,9 @@ Two layers:
   tensors where the JAX package keeps numpy arrays: numpy has no
   bfloat16 (a divergence recorded with the handoff blob's);
 - ``PrefixIndex``: the cluster view of which replicas hold which
-  prefixes. The controller that feeds it and routes by it is a later
-  slice; the index itself is here, held to the JAX package's.
+  prefixes. The controller feeds it from its replicas' stats, promotes
+  hot prefixes to the replicas that lack them, and hands routers its
+  ``routes()`` (``serve/controller.py``).
 """
 from __future__ import annotations
 

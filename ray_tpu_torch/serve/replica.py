@@ -71,6 +71,34 @@ def authkey() -> bytes:
     return bytes(multiprocessing.current_process().authkey)
 
 
+# Connections a listener queues before it accepts them. Past its queue a
+# connect either waits or, on some kernels, fails at once with EAGAIN:
+# ``connect`` retries that for a while (the listener is alive, only busy).
+LISTEN_BACKLOG = 128
+_CONNECT_RETRY_S = 5.0
+
+
+def listen(address: str):
+    """An authenticated AF_UNIX listener on ``address``."""
+    return mpc.Listener(address, family="AF_UNIX", authkey=authkey(),
+                        backlog=LISTEN_BACKLOG)
+
+
+def connect(address: str):
+    """An authenticated connection to the listener on ``address``,
+    retried for up to _CONNECT_RETRY_S while its queue is full."""
+    deadline = time.monotonic() + _CONNECT_RETRY_S
+    delay = 0.001
+    while True:
+        try:
+            return mpc.Client(address, family="AF_UNIX", authkey=authkey())
+        except BlockingIOError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(delay)
+            delay = min(2 * delay, 0.05)
+
+
 def socket_address(directory: str, name: str) -> str:
     """An AF_UNIX address for ``name``: a file in ``directory``, or, where
     that path is too long for a socket, a name in Linux's abstract
@@ -322,11 +350,15 @@ class _ReplicaServer:
         self.n_spilled = 0
 
     def serve_forever(self) -> None:
+        # The listener stays open to the process's end (os._exit), so an
+        # error here is one connection's: a caller that went away during
+        # the authentication handshake raises an OSError out of accept().
         while True:
             try:
                 conn = self.listener.accept()
             except OSError:
-                return  # the listener closed
+                time.sleep(0.001)  # no busy loop on a persistent error
+                continue
             except Exception:  # noqa: BLE001 — a failed handshake
                 continue
             threading.Thread(target=self._handle, args=(conn,),
@@ -401,18 +433,23 @@ class _ReplicaServer:
         return spilled
 
     def _handle(self, raw) -> None:
-        if self.card is not None:
-            # CUDA's current card is per thread: user code run here (a
-            # prefill, an engine submit) lands on the replica's card.
-            import torch
-
-            torch.cuda.set_device(self.card)
         conn = _Conn(raw)
         try:
             kind, method, args, kwargs, meta = pickle.loads(raw.recv_bytes())
         except Exception:  # noqa: BLE001 — nothing to answer
             conn.close()
             return
+        if self.card is not None:
+            # CUDA's current card is per thread: user code run here (a
+            # prefill, an engine submit) lands on the replica's card.
+            import torch
+
+            try:
+                torch.cuda.set_device(self.card)
+            except Exception as e:  # noqa: BLE001 — to the caller
+                conn.send(("err", error_payload(e)))
+                conn.close()
+                return
         if kind == "actor":
             try:
                 conn.send(("ok", self._result(
@@ -481,8 +518,7 @@ def replica_main(conn, payload: bytes, card: Optional[int],
             torch.set_num_threads(num_threads)
         fc, args, kwargs, user_config = pickle.loads(payload)
         actor = ReplicaActor(fc, args, kwargs, user_config)
-        listener = mpc.Listener(address, family="AF_UNIX",
-                                authkey=authkey())
+        listener = listen(address)
     except BaseException:  # noqa: BLE001 — reported to the controller
         conn.send_bytes(pickle.dumps((0, "err", traceback.format_exc())))
         sys.stdout.flush()
@@ -545,8 +581,7 @@ class ReplicaClient:
         cannot travel)."""
         data = pickle.dumps((kind, method, tuple(args), kwargs, meta))
         try:
-            conn = mpc.Client(self.address, family="AF_UNIX",
-                              authkey=authkey())
+            conn = connect(self.address)
         except (OSError, EOFError) as e:
             raise ReplicaDiedError(
                 f"replica {self.replica_id} cannot be reached: {e}") from e

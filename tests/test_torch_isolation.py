@@ -25,6 +25,7 @@ sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["gymnasium"] = None    # and `import gymnasium`
 sys.modules["ray_tpu"] = None      # and any module of the JAX package
 sys.modules["cloudpickle"] = None  # and cloudpickle
+sys.modules["aiohttp"] = None      # and aiohttp (the JAX proxy's server)
 sys.path.insert(0, {repo!r})
 import ray_tpu_torch
 names = ["ray_tpu_torch"]
@@ -33,9 +34,10 @@ for info in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     names.append(info.name)
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules
-                if m in ("ray_tpu", "jax", "cloudpickle")
+                if m in ("ray_tpu", "jax", "cloudpickle", "aiohttp")
                 and sys.modules[m] is not None
-                or m.startswith(("ray_tpu.", "jax.", "cloudpickle.")))
+                or m.startswith(("ray_tpu.", "jax.", "cloudpickle.",
+                                 "aiohttp.")))
 print("IMPORTED", len(names))
 print("NAMES", " ".join(names))
 print("LEAKED", leaked)
@@ -65,13 +67,14 @@ def test_package_imports_without_jax_or_ray_tpu():
         "ray_tpu_torch.util.procs"} <= set(lines["NAMES"].split())
     assert {rl + "utils.actor_manager", "ray_tpu_torch.parallel.collectives"
             } <= set(lines["NAMES"].split())
-    assert {"ray_tpu_torch.serve." + m for m in SERVE_MODULES} <= set(
-        lines["NAMES"].split())
+    assert {"ray_tpu_torch.serve." + m for m in SERVE_MODULES} | {
+        "ray_tpu_torch.core.telemetry"} <= set(lines["NAMES"].split())
 
 
 SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
                  "controller", "handle", "api", "llm", "prefix_cache",
-                 "disagg", "llm_engine")
+                 "disagg", "llm_engine", "proxy", "grpc_proxy", "autoscaler",
+                 "multiplex")
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
                 "executor", "dataset", "iterator", "preprocessors")
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
@@ -483,7 +486,7 @@ def test_torch_trainer_refuses_before_any_spawn(monkeypatch):
 # the blocks at the top hold in the replica too.
 _SERVE_SCRIPT = r"""
 import sys
-for name in ("jax", "ray_tpu", "cloudpickle"):
+for name in ("jax", "ray_tpu", "cloudpickle", "aiohttp"):
     sys.modules[name] = None
 sys.path.insert(0, {repo!r})
 from ray_tpu_torch import serve
@@ -491,7 +494,8 @@ from ray_tpu_torch import serve
 
 def leaked():
     return sorted(m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle",
+                                         "aiohttp")
                   and sys.modules[m] is not None)
 
 
@@ -523,7 +527,8 @@ if __name__ == "__main__":
 
 def test_serve_replica_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
     """A CPU replica process imports every module of the Serve layer with
-    jax, the JAX package and cloudpickle blocked, imports none of them,
+    jax, the JAX package, cloudpickle and aiohttp blocked, imports none
+    of them,
     runs torch on one thread and never starts CUDA; shutdown leaves no
     child process."""
     names = ["ray_tpu_torch.serve." + m for m in SERVE_MODULES]
@@ -589,3 +594,63 @@ def test_serve_refuses_before_any_spawn(monkeypatch):
 class _Plain:
     def __init__(self, fn):
         self.fn = fn
+
+
+@serve.deployment
+def _echo(x):
+    return x
+
+
+def test_serve_shutdown_stops_proxies_and_frees_the_port():
+    """After serve.shutdown() no proxy thread is left (the HTTP proxy's
+    accept and connection threads, the gRPC proxy's pool) and the HTTP
+    port can be bound again, by a proxy as by a plain socket."""
+    import json
+    import socket
+    import threading
+    import urllib.request
+
+    from ray_tpu_torch.serve import api
+
+    def proxy_threads():
+        return sorted(t.name for t in threading.enumerate()
+                      if t.name.startswith(("serve-http-proxy",
+                                            "serve-grpc-proxy")))
+
+    grpc = None
+    try:
+        import grpc
+    except ImportError:
+        pass
+    serve.run(_echo.bind(), route_prefix="/e", _http=True, http_port=0,
+              _grpc=grpc is not None, grpc_port=0)
+    port = api._proxy.port
+    # An open keep-alive connection holds a thread until shutdown.
+    conn = socket.create_connection(("127.0.0.1", port))
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/e",
+                                 data=json.dumps(5).encode())
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert json.loads(resp.read()) == {"result": 5}
+    if grpc is not None:
+        with grpc.insecure_channel(
+                f"127.0.0.1:{api._grpc_proxy.port}") as ch:
+            call = ch.unary_unary(
+                "/rtpu.serve/Call",
+                request_serializer=lambda o: json.dumps(o).encode(),
+                response_deserializer=lambda b: json.loads(b.decode()))
+            assert call({"route": "/e", "input": 6}, timeout=30) == {
+                "result": 6}
+    assert proxy_threads()
+    serve.shutdown()
+    conn.close()
+    assert proxy_threads() == []
+    assert api._proxy is None and api._grpc_proxy is None
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+    serve.start(http_port=port)
+    try:
+        assert api._proxy.port == port
+    finally:
+        serve.shutdown()
+    assert proxy_threads() == []

@@ -398,3 +398,59 @@ def test_streaming_llm_continuous_batching(serve_instance, jref):
             assert [c["token"] for c in st] == jref.tokens(p, 4), p
     finally:
         serve.delete("cb-llm")
+
+
+def test_replica_and_controller_survive_a_failed_handshake(serve_instance):
+    """A caller that connects and leaves before the authentication
+    handshake ends (its accept() raises an OSError) costs the replica and
+    the controller that one connection: both go on accepting."""
+    import socket
+    import threading
+
+    from ray_tpu_torch.serve import controller
+
+    handle = serve.run(doubler.bind(), route_prefix="/doubler")
+    try:
+        (rep,) = controller._local.get_replicas("doubler")[1]
+        for address in (rep.address, controller._local.address) * 3:
+            s = socket.socket(socket.AF_UNIX)
+            s.connect(address)
+            s.close()
+        out = []
+
+        def calls():
+            out.append(handle.remote(4).result(timeout=10))
+            client = controller.ControllerClient(controller._local.address)
+            out.append(client.get_deployment_names())
+
+        t = threading.Thread(target=calls, daemon=True)
+        t.start()
+        t.join(30)
+        assert not t.is_alive(), "a call hung after the failed handshakes"
+        assert out[0] == 8 and "doubler" in out[1], out
+    finally:
+        serve.delete("doubler")
+
+
+def test_connect_retries_a_full_queue(monkeypatch):
+    """A listener whose queue is full answers a connect with EAGAIN on
+    some kernels (a busy replica, not a dead one): ``connect`` retries it
+    for a while before it raises."""
+    import multiprocessing.connection as mpc
+
+    from ray_tpu_torch.serve import replica
+
+    calls = []
+
+    def client(address, family=None, authkey=None):
+        calls.append(address)
+        if len(calls) < 3:
+            raise BlockingIOError(11, "Resource temporarily unavailable")
+        return "conn"
+
+    monkeypatch.setattr(mpc, "Client", client)
+    assert replica.connect("addr") == "conn" and len(calls) == 3
+    monkeypatch.setattr(replica, "_CONNECT_RETRY_S", 0.0)
+    calls.clear()
+    with pytest.raises(BlockingIOError):
+        replica.connect("addr")

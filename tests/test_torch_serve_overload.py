@@ -3,8 +3,8 @@ tests/test_serve_overload.py: admission control (the bounded queue, the
 circuit breakers), end-to-end deadlines, the ``@serve.batch`` seal, and
 the cancel that frees an engine slot when a stream is closed mid-way.
 
-The HTTP cases (503 + Retry-After, 504) wait for the port's proxy, a
-later slice. Deployments are module-level (a replica imports this module
+The HTTP cases (503 + Retry-After, 504) are in
+test_torch_serve_ingress.py. Deployments are module-level (a replica imports this module
 again to find them); the LLM side reuses test_torch_serve.py's params
 factory and JAX reference.
 """
