@@ -57,9 +57,23 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    streamed four at a time with urllib, chunk by chunk, tokens equal to
    the witness's; one connection closed after 3 tokens, its slot free
    within one decode step; a 1 ms deadline answered 504; TTFT and the
-   gap through HTTP beside the handle's) and ``serve_grpc`` (one prompt
+   gap through HTTP beside the handle's), ``serve_grpc`` (one prompt
    through the gRPC proxy's CallStream where ``grpc`` imports, else a
-   line saying why it did not run),
+   line saying why it did not run) and ``serve_trace`` (the trace and
+   metrics plane, on by default in every serve phase: the prompts
+   streamed four at a time through HTTP with an X-Request-Id each, then
+   through the handle with ``options(request_id=...)``, tokens the
+   witness's; each request's ledger row ok with its proto and tokens,
+   every span under its row's trace id, the root, assign, replica,
+   prefill, attach and stream hops, exclusive times summing to the wall
+   within rel 0.15 + 0.1 s; ``/metrics`` counting the prefills' TTFTs,
+   the tokens and the requests, no slot busy after; the controller's
+   TTFT p99 in the bucket of the clients' p99; 32 K1 launches a prefill;
+   a 1 ms deadline's row kept as ``deadline``; printed, each of the 4
+   streams started together split into assign, replica queue, prefill
+   and attach, and the in-process decode tick at 4 slots with the whole
+   plane, with the instruments alone (RTPU_SERVE_TRACE=0) and with no
+   plane, interleaved, beside the host time a tick spends recording),
    ``serve_batch`` (the ``@batch`` deployment: four prompts of 1100-2048
    tokens sent at once, twice, each one's tokens equal to an in-process
    ``generate_ragged`` over the same rows, the batch sizes formed) and,
@@ -1016,7 +1030,8 @@ def _starts(name):
     return controller._local.get_replica_starts(name)
 
 
-def _stream(handle, prompt, close_after=None, max_new_tokens=None):
+def _stream(handle, prompt, close_after=None, max_new_tokens=None,
+            request_id=None):
     """One stream through the handle: its tokens and each token's seconds
     since the call; closed after ``close_after`` tokens."""
     t0 = time.perf_counter()
@@ -1024,6 +1039,8 @@ def _stream(handle, prompt, close_after=None, max_new_tokens=None):
     request = {"tokens": prompt}
     if max_new_tokens is not None:
         request["max_new_tokens"] = max_new_tokens
+    if request_id is not None:
+        handle = handle.options(request_id=request_id)
     st = handle.options(stream=True).remote(request)
     for chunk in st:
         if "token" not in chunk:
@@ -1036,16 +1053,19 @@ def _stream(handle, prompt, close_after=None, max_new_tokens=None):
     return toks, stamps
 
 
-def _streams_four_at_a_time(handle, prompts, close_after=None):
+def _streams_four_at_a_time(handle, prompts, close_after=None,
+                            request_ids=None):
     """Stream ``prompts`` NUM_SLOTS at a time (a consumer thread each);
     ``close_after`` maps a prompt's index to the tokens read before its
     stream is closed. Returns [(tokens, stamps)] in order and the wall."""
     from concurrent.futures import ThreadPoolExecutor
 
     close_after = close_after or {}
+    request_ids = request_ids or [None] * len(prompts)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(NUM_SLOTS) as ex:
-        futs = [ex.submit(_stream, handle, p, close_after.get(i))
+        futs = [ex.submit(_stream, handle, p, close_after.get(i),
+                          request_id=request_ids[i])
                 for i, p in enumerate(prompts)]
         runs = [f.result() for f in futs]
     return runs, time.perf_counter() - t0
@@ -1085,7 +1105,8 @@ def _process_row(stats):
             "result_file_write_s": info.get("spill_s", 0.0)}
 
 
-def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
+def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms,
+                       eng=None):
     """Llama-3-8B's streaming deployment with continuous batching on one
     replica process (the card's first free one), behind the HTTP proxy
     and, where ``grpc`` imports, the gRPC proxy (both on free ports):
@@ -1095,8 +1116,9 @@ def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
     whose slot must be free before the engine's next decode step ends. A
     first round, one token a prompt, one prompt at a time, meets each
     prefill shape once (its TTFT is the cold one). Then, on the same
-    replica, serve_http and serve_grpc. Returns the replica's K1
-    launches."""
+    replica, serve_http, serve_grpc and (given the in-process engine
+    ``eng``, for its tick with and without the plane) serve_trace.
+    Returns the replica's K1 launches."""
     from ray_tpu_torch import serve
 
     try:
@@ -1168,6 +1190,9 @@ def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms):
         launches += phase_serve_http(cfg, prompts, witness, rep, tick_s,
                                      handle_ttft, gap_ms)
         launches += phase_serve_grpc(prompts, witness, rep, grpc_missing)
+        if eng is not None:
+            launches += phase_serve_trace(cfg, prompts, witness, rep,
+                                          handle, eng)
     finally:
         serve.delete(name)
     return launches
@@ -1352,21 +1377,29 @@ def _proxy_port(kind):
     return (api._proxy if kind == "http" else api._grpc_proxy).port
 
 
-def _http_stream(port, prompt, close_after=None, timeout_s=None):
+def _http_stream(port, prompt, close_after=None, timeout_s=None,
+                 request_id=None):
     """One stream through the HTTP proxy, read chunk by chunk (a token a
     line): its tokens and each token's seconds since the request; the
-    connection is closed after ``close_after`` tokens."""
+    connection is closed after ``close_after`` tokens. A ``request_id``
+    goes as X-Request-Id and must come back on the response."""
     import urllib.request
 
     headers = {"Content-Type": "application/json"}
     if timeout_s is not None:
         headers["X-Request-Timeout-S"] = str(timeout_s)
+    if request_id is not None:
+        headers["X-Request-Id"] = request_id
     req = urllib.request.Request(f"http://127.0.0.1:{port}/",
                                  data=json.dumps({"tokens": prompt}).encode(),
                                  headers=headers)
     t0 = time.perf_counter()
     toks, stamps = [], []
     with urllib.request.urlopen(req, timeout=600) as resp:
+        if request_id is not None \
+                and resp.headers["X-Request-Id"] != request_id:
+            raise AssertionError(f"X-Request-Id {request_id} came back as "
+                                 f"{resp.headers['X-Request-Id']}")
         while True:
             line = resp.readline()
             if not line:
@@ -1381,13 +1414,16 @@ def _http_stream(port, prompt, close_after=None, timeout_s=None):
     return toks, stamps
 
 
-def _http_four_at_a_time(port, prompts, close_after=None):
+def _http_four_at_a_time(port, prompts, close_after=None,
+                         request_ids=None):
     from concurrent.futures import ThreadPoolExecutor
 
     close_after = close_after or {}
+    request_ids = request_ids or [None] * len(prompts)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(NUM_SLOTS) as ex:
-        futs = [ex.submit(_http_stream, port, p, close_after.get(i))
+        futs = [ex.submit(_http_stream, port, p, close_after.get(i),
+                          request_id=request_ids[i])
                 for i, p in enumerate(prompts)]
         runs = [f.result() for f in futs]
     return runs, time.perf_counter() - t0
@@ -1510,6 +1546,314 @@ def phase_serve_grpc(prompts, witness, rep, grpc_missing):
     if not ok:
         raise AssertionError(f"the gRPC stream differs from the witness: "
                              f"{toks[:8]} vs {witness[i][:8]}")
+    return launches
+
+
+# ------------------------------------------------------ serve trace plane
+
+# The TTFT histogram's bounds (serve/llm_engine.py's rtpu_serve_ttft_s).
+TTFT_BOUNDS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+TRACE_TIMEOUT_S = 30.0
+TRACE_ATTR_REL, TRACE_ATTR_ABS = 0.15, 0.1
+
+
+def _scrape(addr):
+    """The sink's /metrics as {series line key: value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def _plane_counts(addr, name):
+    m = _scrape(addr)
+    return {"ttft_count": m.get(f'rtpu_serve_ttft_s_count{{model="{name}"}}',
+                                0.0),
+            "tokens": m.get(f'rtpu_serve_decode_tokens_total{{model="{name}"}}',
+                            0.0),
+            "slots_busy": m.get(f'rtpu_serve_slots_busy{{model="{name}"}}'),
+            "requests_ok": m.get(f'rtpu_serve_requests_total{{deployment='
+                                 f'"{name}",status="ok"}}', 0.0)}
+
+
+def _settled_counts(addr, name):
+    """The plane's counts once two reads 1.2 s apart (past a flush period
+    of every process) agree."""
+    from ray_tpu_torch.util import metrics
+
+    deadline = time.time() + TRACE_TIMEOUT_S
+    prev = None
+    while time.time() < deadline:
+        metrics.flush_metrics()
+        cur = _plane_counts(addr, name)
+        if cur == prev:
+            return cur
+        prev = cur
+        time.sleep(1.2)
+    raise AssertionError(f"the /metrics counts never settled: {prev}")
+
+
+def _ledger_row(rid, pred):
+    """The request's ledger row with its waterfall, once ``pred`` holds
+    (replica spans ship on a 0.5 s cadence)."""
+    from ray_tpu_torch.serve import trace
+    from ray_tpu_torch.util import state
+
+    deadline = time.time() + TRACE_TIMEOUT_S
+    row = None
+    while time.time() < deadline:
+        trace.flush_serve_trace()
+        try:
+            row = state.serve_trace(rid)
+            if pred(row):
+                return row
+        except KeyError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"no settled ledger row for {rid}: {row}")
+
+
+def _row_failures(row, proto, tokens):
+    """What a finished stream's row breaks of the plane's contract."""
+    out = []
+    names = {s["name"] for s in row["spans"]}
+    want = {f"serve.{proto}", "serve.assign", "serve.replica",
+            "serve.prefill", "serve.engine_attach", "serve.stream"}
+    if row["status"] != "ok" or row["proto"] != proto \
+            or row.get("tokens") != tokens or not row.get("ttft_s", 0) > 0:
+        out.append(f"row {row['request_id']}: status {row['status']}, "
+                   f"proto {row['proto']}, tokens {row.get('tokens')}, "
+                   f"ttft {row.get('ttft_s')}")
+    if {s["trace_id"] for s in row["spans"]} != {row["trace_id"]}:
+        out.append(f"row {row['request_id']}: spans of another trace")
+    if not want <= names:
+        out.append(f"row {row['request_id']}: hops {sorted(names)}, "
+                   f"missing {sorted(want - names)}")
+    wf = row["waterfall"]
+    attributed = sum(w["self_s"] for w in wf)
+    if [w["depth"] for w in wf].count(0) != 1 or abs(
+            attributed - row["wall_s"]) > (TRACE_ATTR_REL * row["wall_s"]
+                                           + TRACE_ATTR_ABS):
+        out.append(f"row {row['request_id']}: exclusive times sum to "
+                   f"{attributed} s of a {row['wall_s']} s wall")
+    return out
+
+
+def _split(row):
+    """One request's dwell by hop (ms): assign, the replica's queue,
+    prefill, attach (slot wait and splice), and the root's wall."""
+    def dwell(name):
+        return sum(w["dwell_s"] for w in row["waterfall"]
+                   if w["name"] == name) * 1e3
+
+    replica = [w for w in row["waterfall"] if w["name"] == "serve.replica"]
+    return {"request_id": row["request_id"],
+            "assign_ms": dwell("serve.assign"),
+            "replica_queue_ms": sum(w["attributes"].get("replica_queue_s", 0)
+                                    for w in replica) * 1e3,
+            "prefill_ms": dwell("serve.prefill"),
+            "engine_attach_ms": dwell("serve.engine_attach"),
+            "stream_ms": dwell("serve.stream"),
+            "wall_ms": row["wall_s"] * 1e3,
+            "ttft_ms": (row.get("ttft_s") or 0.0) * 1e3}
+
+
+def _bucket(v):
+    """The TTFT histogram's bucket (lo, hi] that holds ``v``."""
+    lo = 0.0
+    for b in TTFT_BOUNDS:
+        if v <= b:
+            return (lo, b)
+        lo = b
+    return (lo, math.inf)
+
+
+class _InstrumentClock:
+    """Stands in for one of the engine's serve instruments: forwards each
+    record to ``inner`` (or drops it where ``inner`` is None) and adds
+    the seconds the call took to ``spent[0]``."""
+
+    def __init__(self, inner, spent):
+        self.inner, self.spent = inner, spent
+
+    def _record(self, how, *args, **kwargs):
+        t = time.perf_counter()
+        if self.inner is not None:
+            getattr(self.inner, how)(*args, **kwargs)
+        self.spent[0] += time.perf_counter() - t
+
+    def observe(self, *args, **kwargs):
+        self._record("observe", *args, **kwargs)
+
+    def inc(self, *args, **kwargs):
+        self._record("inc", *args, **kwargs)
+
+    def set(self, *args, **kwargs):
+        self._record("set", *args, **kwargs)
+
+
+# The tick's arms: the whole plane (RTPU_SERVE_TRACE=1 and the engine's
+# instruments), the instruments alone (the flag off drops the token
+# timeline and the ITL observations; the token counter and the slots
+# gauge still record), and no plane (the flag off, the instruments
+# replaced by ones that drop every record).
+TICK_ARMS = (("plane_on", "1", True), ("trace_off", "0", True),
+             ("plane_off", "0", False))
+
+
+def _ticks_by_plane(eng, prompts, rounds=4, per_round=DECODE_TICKS // 2):
+    """The in-process engine's decode tick at NUM_SLOTS busy slots (ms)
+    in each of TICK_ARMS, the arms interleaved ``rounds`` times in a
+    rotating order; and, for each arm, the host microseconds a timed
+    tick spent inside the instruments' records."""
+    from ray_tpu_torch import flags
+    from ray_tpu_torch.serve import llm_engine
+
+    real = llm_engine._serve_metrics()
+    out = {arm: [] for arm, _, _ in TICK_ARMS}
+    spent = {arm: [0.0] for arm, _, _ in TICK_ARMS}
+    try:
+        for r in range(rounds):
+            k = r % len(TICK_ARMS)
+            for arm, flag, instruments in TICK_ARMS[k:] + TICK_ARMS[:k]:
+                with flags.scoped({"RTPU_SERVE_TRACE": flag}):
+                    held = [eng.submit(p) for p in prompts[:NUM_SLOTS]]
+                    eng.tick()  # warm
+                    llm_engine._serve_metrics_cache = {
+                        name: _InstrumentClock(
+                            inst if instruments else None, spent[arm])
+                        for name, inst in real.items()}
+                    for _ in range(per_round):
+                        t = time.perf_counter()
+                        if eng.tick() != NUM_SLOTS:
+                            raise AssertionError(
+                                "a timed decode tick had a slot retire")
+                        out[arm].append((time.perf_counter() - t) * 1e3)
+                    llm_engine._serve_metrics_cache = real
+                    for q in held:
+                        eng.abort(q)
+    finally:
+        llm_engine._serve_metrics_cache = real
+    us = {arm: spent[arm][0] * 1e6 / len(out[arm]) for arm in out}
+    return out, us
+
+
+def phase_serve_trace(cfg, prompts, witness, rep, handle, eng):
+    """The trace and metrics plane on serve_stream's replica: the
+    prompts four at a time through HTTP (an X-Request-Id each), then
+    through the handle (``options(request_id=...)``), every stream the
+    witness's tokens. Each request's ledger row, spans and waterfall, the
+    sink's /metrics counts against the streams, the controller's TTFT
+    p99 against the clients', K1's launches; a 1 ms deadline's row; the
+    hop split of the 4 streams started together; the in-process tick
+    in each of TICK_ARMS; the split of the replica's first request. Returns the replica's K1 launches."""
+    import urllib.error
+
+    from ray_tpu_torch.serve import controller
+    from ray_tpu_torch.util import state
+
+    name = "serve-stream"
+    addr = state.metrics_address()
+    port = _proxy_port("http")
+    failures = []
+    base = _settled_counts(addr, name)
+    time.sleep(2.5)  # a TSDB point of the settled state, a second back
+    t_mark = time.time()
+    k0 = _k1(rep)
+    http_ids = [f"smoke-trace-http-{i}" for i in range(len(prompts))]
+    py_ids = [f"smoke-trace-handle-{i}" for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    http_runs, _ = _http_four_at_a_time(port, prompts,
+                                        request_ids=http_ids)
+    py_runs, _ = _streams_four_at_a_time(handle, prompts,
+                                         request_ids=py_ids)
+    wall = time.perf_counter() - t0
+    for runs, how in ((http_runs, "HTTP"), (py_runs, "handle")):
+        for i, (toks, _) in enumerate(runs):
+            if toks != witness[i]:
+                failures.append(f"{how} stream {i} differs from the witness: "
+                                f"{toks[:8]} vs {witness[i][:8]}")
+    rows = {}
+    for rid, proto, toks in ([(r, "http", len(w)) for r, w in
+                              zip(http_ids, witness)]
+                             + [(r, "python", len(w)) for r, w in
+                                zip(py_ids, witness)]):
+        rows[rid] = _ledger_row(rid, lambda r: (
+            r["status"] != "inflight" and r.get("tokens") is not None
+            and "serve.prefill" in {s["name"] for s in r["spans"]}))
+        failures += _row_failures(rows[rid], proto, toks)
+    launches = _k1(rep) - k0
+    prefills = 2 * len(prompts)
+    if launches != cfg.n_layers * prefills:
+        failures.append(f"K1 launched {launches} times for {prefills} "
+                        f"prefills of {cfg.n_layers} layers")
+    want = {"ttft_count": base["ttft_count"] + prefills,
+            "tokens": base["tokens"] + sum(len(t) for t, _ in
+                                           http_runs + py_runs),
+            "slots_busy": 0.0,
+            "requests_ok": base["requests_ok"] + prefills}
+    deadline = time.time() + TRACE_TIMEOUT_S
+    while True:
+        got = _settled_counts(addr, name)
+        if got == want or time.time() > deadline:
+            break
+    if got != want:
+        failures.append(f"/metrics counts {got}, expected {want}")
+    time.sleep(1.2)  # a TSDB point of the final state
+    p99 = controller._local._ttft_p99(name, window_s=time.time() - t_mark)
+    client = sorted(stamps[0] for _, stamps in http_runs + py_runs)
+    client_p99 = client[math.ceil(0.99 * len(client)) - 1]
+    if p99 is None or _bucket(p99) != _bucket(client_p99):
+        failures.append(f"the controller's TTFT p99 {p99} is not in the "
+                        f"bucket {_bucket(client_p99)} of the clients' "
+                        f"p99 {client_p99}")
+    # The 1 ms deadline last: its request may reach the engine (a
+    # prefill, a TTFT) before the deadline is seen.
+    try:
+        _http_stream(port, prompts[0], timeout_s=0.001,
+                     request_id="smoke-trace-deadline")
+        code = 200
+    except urllib.error.HTTPError as e:
+        code = e.code
+    deadline_row = _ledger_row("smoke-trace-deadline",
+                               lambda r: r["status"] != "inflight")
+    if code != 504 or deadline_row["status"] != "deadline" \
+            or not deadline_row["retained"]:
+        failures.append(f"the 1 ms deadline: HTTP {code}, row "
+                        f"{deadline_row['status']}, kept "
+                        f"{deadline_row['retained']}")
+    launches = _k1(rep) - k0
+    # The replica's first request (serve_stream's cold round): its row
+    # is the deployment's oldest through the handle.
+    first = state.list_serve_requests(model=name, limit=100000)[-1]
+    cold = _split(state.serve_trace(first["request_id"]))
+    ticks, instrument_us = _ticks_by_plane(eng, prompts)
+    emit("serve_trace", ok=not failures, failures=failures,
+         model="llama3_8b", requests=len(rows), wall_s=wall,
+         k1_launches=launches,
+         split_http_4_started_together=[
+             _split(rows[r]) for r in http_ids[:NUM_SLOTS]],
+         split_handle_4_started_together=[
+             _split(rows[r]) for r in py_ids[:NUM_SLOTS]],
+         split_later=[_split(rows[r]) for r in
+                      http_ids[NUM_SLOTS:] + py_ids[NUM_SLOTS:]],
+         split_replica_first_request=cold,
+         metrics_before=base, metrics_after=got,
+         ttft_p99_controller_s=p99, ttft_p99_clients_s=client_p99,
+         ttft_p99_bucket=_bucket(client_p99),
+         deadline_status=code, deadline_row=deadline_row["status"],
+         tick_ms_4_slots=ticks,
+         tick_ms_4_slots_median={arm: statistics.median(v)
+                                 for arm, v in ticks.items()},
+         tick_instrument_us_4_slots=instrument_us)
+    if failures:
+        raise AssertionError("; ".join(failures))
     return launches
 
 
@@ -4937,7 +5281,8 @@ def main() -> int:
         device)
     prefill_ms = phase_prefill_time(cfg, params, prompts, device)
     phase_profile(cfg, params, prompts, eng, tick_s, device)
-    serve_deploy = phase_serve_stream(cfg, prompts, outs, tick_s, prefill_ms)
+    serve_deploy = phase_serve_stream(cfg, prompts, outs, tick_s, prefill_ms,
+                                      eng)
     serve_deploy += phase_serve_batch(cfg, params, device)
     serve_deploy += phase_serve_disagg(cfg, prompts, outs, prefill_ms)
     serve_deploy += phase_serve_multiplex(cfg, params)

@@ -127,6 +127,48 @@ _define("RTPU_SERVE_SCALE_COOLDOWN_S", float, 5.0,
         "deployment, bounding resize churn.")
 
 
+# -- observability: the metrics, event, tracing and serve trace planes -------
+_define("RTPU_METRICS_FLUSH_S", float, 1.0,
+        "Flush period for app metrics (util/metrics.py) to the sink: the "
+        "serve controller's where the process has its address, else the "
+        "process's own.")
+_define("RTPU_TASK_EVENTS_FLUSH_S", float, 0.5,
+        "Flush period of a process's shipper (core/sink.py: serve "
+        "spans and ledger records, events, tracing spans).")
+_define("RTPU_EVENTS", bool, True,
+        "Cluster event subsystem (core/events.py): structured events "
+        "(STREAM_STALLED, ...) in a bounded ring of the sink. 0 disables; "
+        "emit sites then pay one flag check.")
+_define("RTPU_TRACING", bool, False,
+        "Span recording of util/tracing.py (set by setup_tracing; "
+        "processes started afterwards inherit it through the "
+        "environment).")
+_define("RTPU_SERVE_TRACE", bool, True,
+        "Per-request serving trace plane: every hop (proxy, router "
+        "assign, replica, batch seal, engine slot wait, prefill, KV "
+        "handoff, token stream) emits a span on its process's monotonic "
+        "clock, finished requests ship to the serve controller's request "
+        "ledger (util.state.list_serve_requests / serve_trace), and the "
+        "engine records per-token timelines into rtpu_serve_itl_s. 0 "
+        "reduces the whole plane to one flag check per hop.")
+_define("RTPU_SERVE_STALL_S", float, 30.0,
+        "Stream-stall detector threshold: a live generation slot that "
+        "emits no token for this many seconds raises one STREAM_STALLED "
+        "event (per request) with the replica's all-thread stack capture "
+        "attached. <=0 disables the detector.")
+_define("RTPU_SERVE_LEDGER_MAX", int, 2048,
+        "Request-ledger capacity (finished serve request records with "
+        "their spans). Past it, LRU rows evict, except SLO-miss / shed / "
+        "deadline-exceeded rows, which are only reclaimed once every "
+        "unflagged row is gone.")
+_define("RTPU_SERVE_SLO_MS", float, 0.0,
+        "Serving latency SLO in milliseconds: finished requests slower "
+        "than this count into rtpu_serve_slo_miss_total and are retained "
+        "ahead of LRU eviction in the request ledger. <=0 means no "
+        "latency SLO (shed / deadline-exceeded outcomes still count as "
+        "misses).")
+
+
 def get(name: str) -> Any:
     """Read a registered flag from the environment (call-time), else its
     registered default."""

@@ -13,9 +13,9 @@
 - ``@serve.multiplexed`` -> multiplex.py
 - the LLM deployments over models/generate.py -> llm.py, disagg.py,
   prefix_cache.py, llm_engine.py
-
-Left for a later slice: the trace plane (``serve/trace.py``) and the
-metrics plane it rides on.
+- the per-request trace plane (hop spans, ledger records) -> trace.py,
+  on ``util/metrics.py``, ``util/tracing.py``, ``core/events.py`` and the
+  controller's sink and ledger (read back through ``util/state.py``)
 """
 import importlib
 

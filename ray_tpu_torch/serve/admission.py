@@ -9,9 +9,12 @@ power-of-two picker skips, and a token-bucket retry budget capped as a
 fraction of admitted traffic so retries cannot amplify an outage.
 Everything here is gated by ``RTPU_SERVE_ADMISSION``.
 
-The JAX package also counts sheds, deadlines, cancels and open breakers on
-its metrics plane; the port has none, so a breaker's trip and recovery go
-to the log.
+Sheds, deadlines and cancels are counted on the metrics plane
+(``util/metrics.py``: ``rtpu_serve_shed_total``,
+``rtpu_serve_deadline_exceeded_total``, ``rtpu_serve_cancelled_total``)
+and the open breakers of a deployment set ``rtpu_serve_breaker_open``; a
+breaker's trip and recovery are also SERVE_BREAKER_OPEN/CLOSED events
+(``core/events.py``) and log lines.
 """
 from __future__ import annotations
 
@@ -35,6 +38,63 @@ class BackPressureError(Exception):
 
     def __reduce__(self):
         return (BackPressureError, (str(self), self.retry_after_s))
+
+
+_metrics_cache = None
+_metrics_lock = threading.Lock()
+
+
+def serve_metrics():
+    """The overload-protection instruments, shared by every router of the
+    process."""
+    global _metrics_cache
+    if _metrics_cache is None:
+        with _metrics_lock:
+            if _metrics_cache is None:
+                from ..util.metrics import Counter, Gauge
+
+                _metrics_cache = {
+                    "shed": Counter(
+                        "rtpu_serve_shed_total",
+                        description="Requests shed by serve admission "
+                                    "control before executing, by reason "
+                                    "(queue_full, breaker_open, expired)",
+                        tag_keys=("deployment", "reason")),
+                    "deadline": Counter(
+                        "rtpu_serve_deadline_exceeded_total",
+                        description="Serve requests dropped because their "
+                                    "end-to-end deadline passed at a queue "
+                                    "boundary or mid-execution",
+                        tag_keys=("deployment",)),
+                    "cancelled": Counter(
+                        "rtpu_serve_cancelled_total",
+                        description="Serve requests cancelled by the "
+                                    "client (disconnect / explicit cancel) "
+                                    "before completing",
+                        tag_keys=("deployment",)),
+                    "breaker": Gauge(
+                        "rtpu_serve_breaker_open",
+                        description="Per-deployment count of replica "
+                                    "circuit breakers currently open "
+                                    "(consecutive-failure trip; half-open "
+                                    "probes still count as open)",
+                        tag_keys=("deployment",)),
+                }
+    return _metrics_cache
+
+
+def shed(deployment: str, reason: str) -> None:
+    """Count one shed request."""
+    serve_metrics()["shed"].inc(
+        tags={"deployment": deployment, "reason": reason})
+
+
+def deadline_exceeded(deployment: str) -> None:
+    serve_metrics()["deadline"].inc(tags={"deployment": deployment})
+
+
+def cancelled(deployment: str) -> None:
+    serve_metrics()["cancelled"].inc(tags={"deployment": deployment})
 
 
 class CircuitBreaker:
@@ -92,6 +152,10 @@ class CircuitBreaker:
             self.opened_at = now
         return False
 
+    @property
+    def is_open(self) -> bool:
+        return self.state != "closed"
+
 
 class RetryBudget:
     """Token-bucket retry budget: each ADMITTED request earns ``ratio``
@@ -118,7 +182,8 @@ class RetryBudget:
 
 
 class BreakerBoard:
-    """All replica breakers of one deployment."""
+    """All replica breakers of one deployment, with the open-count gauge
+    and the SERVE_BREAKER_OPEN/CLOSED events."""
 
     def __init__(self, deployment: str):
         self.deployment = deployment
@@ -152,18 +217,25 @@ class BreakerBoard:
     def on_success(self, replica_id: str) -> None:
         with self._lock:
             closed = self._get(replica_id).on_success()
+            open_count = self._open_count_locked()
         if closed:
-            logger.info("replica %s of %s recovered: breaker closed",
-                        replica_id, self.deployment)
+            self._emit("SERVE_BREAKER_CLOSED",
+                       f"replica {replica_id} of {self.deployment} "
+                       f"recovered: breaker closed", replica_id)
+        self._set_gauge(open_count)
 
     def on_failure(self, replica_id: str) -> None:
         with self._lock:
             tripped = self._get(replica_id).on_failure()
+            open_count = self._open_count_locked()
         if tripped:
-            logger.warning(
-                "replica %s of %s tripped its circuit breaker (%s "
-                "consecutive failures): routing around it", replica_id,
-                self.deployment, flags.get("RTPU_SERVE_BREAKER_THRESHOLD"))
+            self._emit("SERVE_BREAKER_OPEN",
+                       f"replica {replica_id} of {self.deployment} tripped "
+                       f"its circuit breaker "
+                       f"({flags.get('RTPU_SERVE_BREAKER_THRESHOLD')} "
+                       f"consecutive failures): routing around it",
+                       replica_id)
+        self._set_gauge(open_count)
 
     def prune(self, live_ids) -> None:
         """Drop breakers of replicas that left the deployment."""
@@ -171,3 +243,20 @@ class BreakerBoard:
         with self._lock:
             for rid in [r for r in self._breakers if r not in live]:
                 self._breakers.pop(rid, None)
+            open_count = self._open_count_locked()
+        self._set_gauge(open_count)
+
+    def _open_count_locked(self) -> int:
+        return sum(1 for b in self._breakers.values() if b.is_open)
+
+    def _set_gauge(self, open_count: int) -> None:
+        serve_metrics()["breaker"].set(open_count,
+                                       tags={"deployment": self.deployment})
+
+    def _emit(self, kind: str, message: str, replica_id: str) -> None:
+        from ..core import events
+
+        opened = kind == "SERVE_BREAKER_OPEN"
+        (logger.warning if opened else logger.info)("%s", message)
+        events.emit("WARNING" if opened else "INFO", kind, message,
+                    source="serve", actor_id=replica_id)

@@ -7,8 +7,8 @@ controller (a thread of this process, started on first use) spawns the
 replica processes, and ``run`` returns once every deployment of the
 graph has its replicas ready. Everything that can refuse a graph does so
 before any process is spawned: a nested class or a lambda, a bind
-argument that cannot travel, a scaling policy that needs the metrics
-plane, a replica asking for more cards than are visible or free.
+argument that cannot travel, a scaling policy that does not coerce, a
+replica asking for more cards than are visible or free.
 
 The ingresses run as threads of this process, one of each at most: the
 HTTP proxy (``proxy.py``; ``serve.start`` or ``run(_http=True)``) and the

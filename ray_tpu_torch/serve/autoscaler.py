@@ -2,7 +2,8 @@
 (counterpart of the JAX package's ``serve/autoscaler.py``).
 
 Driven by the serving signals of the controller's replica stats poll —
-queue depth (submitters blocked on a slot) and slot occupancy — and
+queue depth (submitters blocked on a slot), slot occupancy and TTFT p99
+(the controller reads it from its sink's TSDB, ``_ttft_p99``) — and
 evaluated through ``core/telemetry.py``'s AlertEngine, so scaling
 triggers get the same threshold + for-duration semantics (and the same
 state machine) as alert rules.
@@ -11,6 +12,7 @@ Each deployment that sets a ``scaling_policy`` gets a private rule set:
 
 - scale_up_queue: queue depth >= queue_depth_high for up_for_s
 - scale_up_occ:   slot occupancy >= occupancy_high for up_for_s
+- scale_up_ttft:  TTFT p99 >= ttft_p99_high_s for up_for_s (optional)
 - scale_down:     queue <= queue_depth_low AND occupancy <=
                   occupancy_low, sustained for down_for_s (the AND is
                   folded into one derived idle gauge so the engine's
@@ -21,11 +23,8 @@ churn); the fired state is then reset so SUSTAINED pressure fires again
 after another full for-duration window: stepwise scaling, not one-shot.
 The controller applies up-steps through the deployment path and
 down-steps by draining a replica: it leaves the routed set at once and
-stops only once idle, so no stream is cut.
-
-The JAX package's third trigger, TTFT p99 (``ttft_p99_high_s``), reads
-the metrics plane, which the port does not have yet: a policy that sets
-it raises at deploy (:func:`check_policy`).
+stops only once idle, so no stream is cut. Each step taken counts into
+``rtpu_serve_scale_events_total`` (direction up or down).
 """
 from __future__ import annotations
 
@@ -37,6 +36,23 @@ from .. import flags
 from ..core.telemetry import AlertEngine, MetricsTSDB
 
 logger = logging.getLogger(__name__)
+
+_scale_metrics_cache = None
+
+
+def _scale_metrics():
+    global _scale_metrics_cache
+    if _scale_metrics_cache is None:
+        from ..util.metrics import Counter
+
+        _scale_metrics_cache = {
+            "events": Counter(
+                "rtpu_serve_scale_events_total",
+                description="Serve autoscaler replica-count steps taken "
+                            "(direction label: up | down)",
+                tag_keys=("deployment", "direction")),
+        }
+    return _scale_metrics_cache
 
 
 @dataclasses.dataclass
@@ -50,7 +66,7 @@ class ScalingPolicy:
     queue_depth_low: float = 0.5
     occupancy_high: float = 0.95
     occupancy_low: float = 0.5
-    # <= 0 disables the TTFT trigger; > 0 needs the metrics plane.
+    # <= 0 disables the TTFT trigger.
     ttft_p99_high_s: float = 0.0
     up_for_s: float = 2.0
     down_for_s: float = 10.0
@@ -59,18 +75,12 @@ class ScalingPolicy:
 
 
 def check_policy(name: str, policy) -> Optional[ScalingPolicy]:
-    """``policy`` coerced to a ScalingPolicy (None stays None); raises
-    where it asks for what the port cannot do yet."""
+    """``policy`` coerced to a ScalingPolicy (None stays None; a dict
+    with a field ScalingPolicy lacks raises, at deploy)."""
     if not policy:
         return None
     if isinstance(policy, dict):
         policy = ScalingPolicy(**policy)
-    if policy.ttft_p99_high_s > 0:
-        raise NotImplementedError(
-            f"deployment {name!r}: scaling_policy.ttft_p99_high_s reads "
-            "the TTFT p99 from the metrics plane, which comes with the "
-            "port's trace/metrics slice (serve/trace.py, util/metrics.py); "
-            "scale on queue_depth_high and occupancy_high meanwhile")
     return policy
 
 
@@ -84,7 +94,7 @@ class ServeAutoscaler:
     replica deltas to apply this tick."""
 
     def __init__(self, retain: int = 600):
-        self._tsdb = MetricsTSDB(retain=retain)
+        self._tsdb = MetricsTSDB(step_s=1.0, retain=retain)
         self._policies: Dict[str, ScalingPolicy] = {}
         self._engine = AlertEngine([], self._on_event)
         self._pending: List[Tuple[str, int]] = []
@@ -129,6 +139,13 @@ class ServeAutoscaler:
                 "op": ">=", "threshold": p.occupancy_high,
                 "for_s": p.up_for_s, "severity": "INFO",
                 "message": "slot occupancy sustained above policy high"})
+            if p.ttft_p99_high_s > 0:
+                rules.append({
+                    "name": f"scale_up_ttft:{name}",
+                    "metric": "serve_ttft_p99_s", "tags": tags,
+                    "op": ">=", "threshold": p.ttft_p99_high_s,
+                    "for_s": p.up_for_s, "severity": "INFO",
+                    "message": "TTFT p99 sustained above policy high"})
             rules.append({
                 "name": f"scale_down:{name}",
                 "metric": "serve_idle", "tags": tags, "op": ">=",
@@ -160,6 +177,9 @@ class ServeAutoscaler:
             return
         self._last_action[name] = self._now
         self._pending.append((name, delta))
+        _scale_metrics()["events"].inc(
+            1.0, tags={"deployment": name,
+                       "direction": "up" if delta > 0 else "down"})
         logger.info("serve autoscaler: %s %+d (%s: %s)", name, delta,
                     alert, msg)
 
@@ -168,14 +188,15 @@ class ServeAutoscaler:
     def step(self, now: float,
              signals: Dict[str, Dict[str, float]]) -> Dict[str, int]:
         """One control tick. ``signals`` maps deployment name ->
-        {"queue_depth", "occupancy"} from the controller's replica stats
-        poll. Returns {name: ±1} deltas (the controller clamps to the
-        policy's min/max and applies them)."""
+        {"queue_depth", "occupancy", optional "ttft_p99_s"} from the
+        controller's replica stats poll. Returns {name: ±1} deltas (the
+        controller clamps to the policy's min/max and applies them)."""
         if not flags.get("RTPU_SERVE_AUTOSCALE") or not self._policies:
             return {}
         fams: Dict[str, dict] = {
             "serve_queue_depth": {"type": "gauge", "data": {}},
             "serve_slot_occupancy": {"type": "gauge", "data": {}},
+            "serve_ttft_p99_s": {"type": "gauge", "data": {}},
             "serve_idle": {"type": "gauge", "data": {}},
         }
         for name, p in self._policies.items():
@@ -187,6 +208,9 @@ class ServeAutoscaler:
             occ = float(sig.get("occupancy", 0.0))
             fams["serve_queue_depth"]["data"][t] = q
             fams["serve_slot_occupancy"]["data"][t] = occ
+            ttft = sig.get("ttft_p99_s")
+            if ttft is not None:
+                fams["serve_ttft_p99_s"]["data"][t] = float(ttft)
             idle = 1.0 if (q <= p.queue_depth_low
                            and occ <= p.occupancy_low) else 0.0
             fams["serve_idle"]["data"][t] = idle

@@ -7,6 +7,10 @@ each caller gets its element back. A replica process runs each request
 on its own thread (``serve/replica.py``), so concurrent requests meet
 here; on the card this turns 4 one-prompt requests into one [4, S]
 ``generate_ragged``.
+
+Each traced item's dwell in the queue, from its submit to the seal of
+its batch, is shipped as a ``serve.batch_seal`` span of its request's
+trace (``serve/trace.py``), on this process's monotonic clock.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import weakref
 from typing import Any, Callable, List, Optional
 
 from . import context as serve_context
+from . import trace
 
 
 class _Batcher:
@@ -39,9 +44,16 @@ class _Batcher:
     def submit(self, item: Any) -> Any:
         # The caller's frame keeps `self` strongly referenced for the
         # duration, so the batcher cannot be collected mid-request. The
-        # request deadline rides along so the seal can drop expired items.
+        # request deadline rides along so the seal can drop expired items,
+        # and the trace's enqueue stamp so it can ship the queue dwell.
+        tinfo = None
+        if trace.enabled():
+            tctx = trace.current_trace_ctx()
+            if tctx is not None:
+                tinfo = (tctx, time.monotonic(), time.time())
         slot: "queue.Queue" = queue.Queue(1)
-        self._queue.put((item, slot, serve_context.get_request_deadline()))
+        self._queue.put((item, slot, serve_context.get_request_deadline(),
+                         tinfo))
         result = slot.get()
         if isinstance(result, _Err):
             raise result.exc
@@ -90,6 +102,16 @@ def _batcher_loop(ref: "weakref.ref[_Batcher]") -> None:
                     "request deadline passed while waiting in batch queue")))
             else:
                 live.append(b)
+        # Each traced item's dwell between its submit and this seal: the
+        # waterfall's "time lost to coalescing" bar.
+        seal_mono = time.monotonic()
+        for b in batch:
+            if b[3] is not None:
+                trace.emit_span(
+                    "serve.batch_seal", trace_ctx=b[3][0], kind="batch",
+                    dwell_s=seal_mono - b[3][1], start_ts=b[3][2],
+                    attributes={"batch_size": len(live),
+                                "expired": b not in live})
         batch = live
         if not batch:
             del fn

@@ -7,7 +7,9 @@ execution, the ``@batch`` seal, the LLM engine's slot wait) reads it from
 here, so nested handle composition inherits the caller's budget without
 threading kwargs through user code.
 
-The port adds the request's cancellation (:class:`Cancel`, under the
+It also carries the request's id and its trace identity (the trace
+plane's ``trace_id`` and current parent span). The port adds the
+request's cancellation (:class:`Cancel`, under the
 context's ``cancel``): the replica process sets it when the caller
 closes the call (a closed stream, a dropped response). User code can
 poll :func:`cancelled`, or add a callback to the ``Cancel``, which runs
@@ -65,22 +67,42 @@ _request_ctx: "contextvars.ContextVar[Optional[dict]]" = (
 
 
 def set_request_context(*, deadline_ts: Optional[float] = None,
+                        request_id: str = "",
                         start_ts: Optional[float] = None,
                         queue_wait_s: float = 0.0,
                         multiplexed_model_id: str = "",
-                        cancel: Optional[Cancel] = None):
+                        cancel: Optional[Cancel] = None,
+                        trace_ctx: Optional[dict] = None):
     """Install the current request's context; returns a reset token.
     ``start_ts`` (epoch seconds) is when the request entered the system,
     stamped once at the outermost hop and inherited by nested handle
     calls. ``queue_wait_s`` is the time the request had already spent
     upstream, accumulated hop by hop with each process's own monotonic
     clock; latency accounting uses it plus the locally stamped
-    ``arrival_mono`` delta, never a difference of epoch stamps."""
-    c = {"deadline_ts": deadline_ts, "start_ts": start_ts,
+    ``arrival_mono`` delta, never a difference of epoch stamps.
+
+    ``trace_ctx`` is the serve trace plane's wire context
+    (``serve/trace.py``): {"traceparent", "request_id", "deployment"}.
+    Its traceparent rides this dict as ``trace_id``/``parent_span_id``,
+    so nested handle calls and the disaggregated prefill -> decode hop
+    inherit one trace id without threading kwargs through user code."""
+    c = {"deadline_ts": deadline_ts, "request_id": request_id,
+         "start_ts": start_ts,
          "queue_wait_s": max(0.0, float(queue_wait_s or 0.0)),
          "arrival_mono": time.monotonic(),
          "multiplexed_model_id": multiplexed_model_id,
          "cancel": cancel}
+    if trace_ctx:
+        from ..util.tracing import SpanContext
+
+        sc = SpanContext.from_traceparent(trace_ctx.get("traceparent") or "")
+        if sc is not None:
+            c["trace_id"] = sc.trace_id
+            c["parent_span_id"] = sc.span_id
+        if not c["request_id"]:
+            c["request_id"] = trace_ctx.get("request_id") or ""
+        if trace_ctx.get("deployment"):
+            c["deployment"] = trace_ctx["deployment"]
     return _request_ctx.set(c)
 
 
@@ -90,6 +112,12 @@ def reset_request_context(token) -> None:
 
 def get_request_context() -> Optional[dict]:
     return _request_ctx.get()
+
+
+def get_request_id() -> str:
+    """Request id of the active request ("" where none is installed)."""
+    c = _request_ctx.get()
+    return (c.get("request_id") or "") if c else ""
 
 
 def get_request_deadline() -> Optional[float]:

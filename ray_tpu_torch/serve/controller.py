@@ -41,11 +41,22 @@ pending: nothing is spawned for them and no error is recorded. They are
 dropped first when the target falls, and spawned when a card frees. This
 is the counterpart of a JAX actor that waits for a chip.
 
-A replica's health is its process: its sentinel. The metrics plane (the
-JAX package's serve gauges, the TTFT trigger) comes with the trace slice.
+A replica's health is its process: its sentinel.
+
+The trace and metrics plane (a divergence by design: the JAX package keeps
+it in its cluster controller) lives here too: the controller owns a
+``core/sink.py`` ``MetricsSink`` (app metrics from every process of the
+instance, events, spans, the ``GET /metrics`` responder on an ephemeral
+port, a TSDB sampled once a second) and the request ledger
+(:class:`RequestLedger`), both reached over its address. The signal plane
+sets the serve plane's gauges (queue depth, replicas, slot occupancy) and
+reads each TTFT-triggered deployment's p99 from the TSDB
+(:meth:`ServeController._ttft_p99`), as the JAX serve controller does
+(``ray_tpu/serve/controller.py:34-57``, ``:350``, ``:419-438``).
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import logging
 import multiprocessing
@@ -60,6 +71,8 @@ from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .. import flags
+from ..core import sink as core_sink
+from ..core.sink import MetricsSink
 from ..util import procs
 from .autoscaler import ServeAutoscaler
 from .replica import (ReplicaClient, ReplicaDiedError, connect,
@@ -158,6 +171,161 @@ def check_cards(needed: int, held: int = 0) -> None:
             f"{cards} visible are free: each replica takes one card")
 
 
+_plane_metrics_cache = None
+
+
+def _plane_metrics():
+    """The serve plane's gauges, set by the signal plane's stats poll:
+    the autoscaler's inputs, on the shared metrics plane."""
+    global _plane_metrics_cache
+    if _plane_metrics_cache is None:
+        from ..util.metrics import Gauge
+
+        _plane_metrics_cache = {
+            "queue": Gauge(
+                "rtpu_serve_queue_depth",
+                description="Requests queued for a generation slot across "
+                            "a deployment's replicas (serve controller "
+                            "stats poll)",
+                tag_keys=("model",)),
+            "replicas": Gauge(
+                "rtpu_serve_replicas",
+                description="Live replica count per serve deployment "
+                            "(pool label: prefill | decode | main)",
+                tag_keys=("deployment", "pool")),
+            "occupancy": Gauge(
+                "rtpu_serve_slot_occupancy",
+                description="Continuous-batching slot occupancy in [0,1] "
+                            "across a deployment's replicas",
+                tag_keys=("model",)),
+        }
+    return _plane_metrics_cache
+
+
+class RequestLedger:
+    """Finished (and in-flight) serve requests with their hop spans: the
+    JAX controller's ``_serve_ledger_row``, ``_serve_ledger_evict``,
+    ``_h_serve_request_events`` and ``_h_serve_requests``
+    (``ray_tpu/core/controller.py:4146-4243``)."""
+
+    def __init__(self) -> None:
+        self.serve_ledger: "collections.OrderedDict[str, dict]" = (
+            collections.OrderedDict())
+        self._lock = threading.Lock()
+
+    def _row(self, request_id: str) -> Dict[str, Any]:
+        """Fetch-or-create one row. A row created by an early span (its
+        record still in flight from another process) starts
+        "inflight"."""
+        row = self.serve_ledger.get(request_id)
+        if row is None:
+            row = self.serve_ledger[request_id] = {
+                "request_id": request_id, "trace_id": "",
+                "deployment": "", "method": "", "proto": "",
+                "status": "inflight", "error": "", "start_ts": None,
+                "wall_s": None, "slo_miss": False, "retained": False,
+                "spans": [],
+            }
+            self._evict(keep=request_id)
+        return row
+
+    def _evict(self, keep: str) -> None:
+        """LRU with slow-request capture: the oldest UNFLAGGED row goes
+        first; retained rows (SLO miss / shed / deadline) are reclaimed
+        only once every unflagged row is gone. The row just created
+        (``keep``) is never the victim: the JAX controller's could pick
+        it where every other row is retained, and its ingest then raised
+        a KeyError on the row it was filling."""
+        cap = max(16, int(flags.get("RTPU_SERVE_LEDGER_MAX")))
+        while len(self.serve_ledger) > cap:
+            victim = None
+            for rid, row in self.serve_ledger.items():
+                if not row.get("retained") and rid != keep:
+                    victim = rid
+                    break
+            if victim is None:  # every row is retained: evict the oldest
+                self.serve_ledger.popitem(last=False)
+            else:
+                self.serve_ledger.pop(victim, None)
+
+    def ingest(self, spans: Sequence[dict], records: Sequence[dict]) -> None:
+        """One shipped batch of hop spans and ledger records
+        (``serve/trace.py``): spans fold into their request's row (128 a
+        row at most), ``serve.stream`` spans contribute the token stats,
+        a record sets the terminal fields and the retention flag."""
+        with self._lock:
+            for d in spans:
+                rid = d.get("request_id")
+                if not rid:
+                    continue
+                row = self._row(rid)
+                if not row["trace_id"]:
+                    row["trace_id"] = d.get("trace_id") or ""
+                if len(row["spans"]) < 128:
+                    row["spans"].append(d)
+                if d.get("name") == "serve.stream":
+                    a = d.get("attributes") or {}
+                    for k in ("tokens", "ttft_s", "itl_mean_s", "itl_p50_s",
+                              "itl_p99_s", "itl_max_s", "abort_cause",
+                              "sent"):
+                        if a.get(k) not in (None, ""):
+                            row[k] = a[k]
+            for r in records:
+                rid = r.get("request_id")
+                if not rid:
+                    continue
+                row = self._row(rid)
+                row.update({k: r[k] for k in
+                            ("trace_id", "deployment", "method", "proto",
+                             "status", "error", "start_ts", "wall_s",
+                             "slo_miss") if k in r})
+                row["retained"] = bool(
+                    r.get("slo_miss")
+                    or r.get("status") in ("shed", "deadline"))
+                self.serve_ledger.move_to_end(rid)
+
+    def query(self, model: Optional[str] = None,
+              status: Optional[str] = None,
+              min_latency_s: Optional[float] = None,
+              since: Optional[float] = None,
+              request_id: Optional[str] = None,
+              with_spans: bool = False,
+              limit: int = 100) -> List[Dict[str, Any]]:
+        """Rows, newest first. Filters: ``model`` (deployment prefix),
+        ``status``, ``min_latency_s``, ``since`` (start_ts lower bound),
+        ``request_id`` (prefix; includes the hop spans)."""
+        with_spans = bool(with_spans or request_id)
+        out = []
+        with self._lock:
+            for row in reversed(self.serve_ledger.values()):
+                if model and not (row.get("deployment") or "").startswith(
+                        model):
+                    continue
+                if status and row.get("status") != status:
+                    continue
+                if min_latency_s is not None and (
+                        row.get("wall_s") is None
+                        or row["wall_s"] < float(min_latency_s)):
+                    continue
+                if since is not None and (
+                        row.get("start_ts") is None
+                        or row["start_ts"] < float(since)):
+                    continue
+                if request_id and not row["request_id"].startswith(
+                        request_id):
+                    continue
+                r = dict(row)
+                if with_spans:
+                    r["spans"] = list(row.get("spans") or ())
+                else:
+                    r.pop("spans", None)
+                    r["n_spans"] = len(row.get("spans") or ())
+                out.append(r)
+                if len(out) >= int(limit):
+                    break
+        return out
+
+
 class _Replica:
     """The controller's record of one replica process."""
 
@@ -226,11 +394,21 @@ class ServeController:
         # threads reaping one process race in waitpid.
         self._procs_lock = threading.Lock()
         self._stop = threading.Event()
+        # The listener outlives the deployments' stop: a stopping replica
+        # flushes its trace and metrics over it.
+        self._stop_listening = threading.Event()
         # Signal-driven pool scaling and the cluster prefix index (one a
         # deployment), both fed by the signal plane's stats poll; its
         # replica calls run on the pool.
         self._autoscaler = ServeAutoscaler()
         self._prefix_index: Dict[str, Any] = {}
+        # The trace and metrics plane: the sink (with /metrics and its
+        # TSDB) and the request ledger.
+        self.sink = MetricsSink()
+        self.sink.start()
+        self.ledger = RequestLedger()
+        # Every flush of this process now comes here, directly.
+        core_sink.set_route(self, self.address)
         self._pool = ThreadPoolExecutor(max_workers=16,
                                         thread_name_prefix="serve-signals")
         self._loop = threading.Thread(target=self._control_loop,
@@ -344,6 +522,7 @@ class ServeController:
             names = list(self._deployments)
         for n in names:
             self.delete_deployment(n)
+        self._stop_listening.set()
         try:
             # Wake the accept thread (it then sees the stop), then close.
             connect(self.address).close()
@@ -354,6 +533,8 @@ class ServeController:
         self._loop.join(timeout=10)
         self._signal.join(timeout=10)
         self._pool.shutdown(wait=True, cancel_futures=True)
+        core_sink.set_route()
+        self.sink.stop()
         _stop_fork_server()
         shutil.rmtree(self.dir, ignore_errors=True)
 
@@ -446,8 +627,38 @@ class ServeController:
                 out[name] = d
         return out
 
+    # --------------------------------------------- the trace/metrics plane
+
+    def metric_update(self, metrics: List[dict]) -> None:
+        self.sink.metric_update(metrics)
+
+    def cluster_events(self, events: List[dict]) -> None:
+        self.sink.cluster_events(events)
+
+    def cluster_spans(self, spans: List[dict]) -> None:
+        self.sink.cluster_spans(spans)
+
+    def get_spans(self, trace_id: Optional[str] = None,
+                  limit: int = 10000) -> List[dict]:
+        return self.sink.get_spans(trace_id, limit)
+
+    def query_metrics(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.sink.query_metrics(*args, **kwargs)
+
+    def metrics_address(self) -> Optional[str]:
+        return self.sink.address
+
+    def serve_request_events(self, spans: Sequence[dict],
+                             records: Sequence[dict]) -> None:
+        self.ledger.ingest(spans, records)
+
+    def serve_requests(self, **filters: Any) -> List[Dict[str, Any]]:
+        return self.ledger.query(**filters)
+
     _RPC = ("get_replicas", "get_routing_config", "get_deployment_names",
-            "get_last_error", "get_replica_starts")
+            "get_last_error", "get_replica_starts", "metric_update",
+            "cluster_events", "cluster_spans", "get_spans", "query_metrics",
+            "metrics_address", "serve_request_events", "serve_requests")
 
     # ----------------------------------------------------------- replicas
 
@@ -657,6 +868,11 @@ class ServeController:
                         idx.drop_replica(rid)
             sig = {"queue_depth": queue,
                    "occupancy": (busy / total) if total else 0.0}
+            p = self._autoscaler.policy(info.name)
+            if p is not None and p.ttft_p99_high_s > 0:
+                ttft = self._ttft_p99(info.name)
+                if ttft is not None:
+                    sig["ttft_p99_s"] = ttft
             with self._lock:
                 if self._deployments.get(info.name) is not info:
                     continue  # deleted or redeployed meanwhile
@@ -665,8 +881,31 @@ class ServeController:
                 info.signals = sig
                 info.ongoing = ongoing
                 info.polled = len(clients)
+                pool = info.config.get("pool") or "main"
+                n_replicas = len(info.replicas)
             signals[info.name] = sig
+            m = _plane_metrics()
+            m["queue"].set(queue, tags={"model": info.name})
+            m["replicas"].set(float(n_replicas),
+                              tags={"deployment": info.name, "pool": pool})
+            if total:
+                m["occupancy"].set(sig["occupancy"],
+                                   tags={"model": info.name})
         return signals
+
+    def _ttft_p99(self, name: str, window_s: float = 30.0
+                  ) -> Optional[float]:
+        """The deployment's latest TTFT p99 over the last ``window_s``
+        from the sink's TSDB (None before any TTFT); the signal plane
+        reads it only where the policy triggers on it."""
+        res = self.sink.query_metrics(
+            name="rtpu_serve_ttft_s", tags={"model": name}, stat="p99",
+            window_s=window_s)
+        for ser in res["series"]:
+            pts = ser.get("points") or []
+            if pts:
+                return float(pts[-1][1])
+        return None
 
     def _stats_of(self, clients: Sequence[ReplicaClient]
                   ) -> Dict[str, Any]:
@@ -811,7 +1050,7 @@ class ServeController:
         # shutdown() wakes this thread before it closes the listener, so
         # an error here is one connection's (a caller that went away
         # during the handshake raises an OSError out of accept()).
-        while not self._stop.is_set():
+        while not self._stop_listening.is_set():
             try:
                 conn = self._listener.accept()
             except OSError:
@@ -823,15 +1062,17 @@ class ServeController:
                              daemon=True, name="serve-controller-rpc").start()
 
     def _serve_conn(self, conn) -> None:
-        """Answer ``(method, args)`` calls from a replica's router with
-        ``("ok", value)`` or ``("err", (exception, traceback))``."""
+        """Answer ``(method, args[, kwargs])`` calls from another
+        process (a replica's router, its flushers) with ``("ok", value)``
+        or ``("err", (exception, traceback))``."""
         try:
             while True:
-                method, args = pickle.loads(conn.recv_bytes())
+                method, args, *kwargs = pickle.loads(conn.recv_bytes())
                 try:
                     if method not in self._RPC:
                         raise AttributeError(f"no controller call {method!r}")
-                    reply = ("ok", getattr(self, method)(*args))
+                    reply = ("ok", getattr(self, method)(
+                        *args, **(kwargs[0] if kwargs else {})))
                 except Exception as e:  # noqa: BLE001 — to the caller
                     reply = ("err", error_payload(e))
                 conn.send_bytes(pickle.dumps(reply))
@@ -866,13 +1107,14 @@ class ControllerClient:
         self._conn = None
         self._lock = threading.Lock()
 
-    def _call(self, method: str, *args) -> Any:
+    def _call(self, method: str, *args, **kwargs) -> Any:
         with self._lock:
             for attempt in (0, 1):
                 try:
                     if self._conn is None:
                         self._conn = connect(self.address)
-                    self._conn.send_bytes(pickle.dumps((method, args)))
+                    self._conn.send_bytes(pickle.dumps((method, args,
+                                                        kwargs)))
                     status, value = pickle.loads(self._conn.recv_bytes())
                     break
                 except (OSError, EOFError):
@@ -891,7 +1133,7 @@ class ControllerClient:
     def __getattr__(self, name: str):
         if name not in ServeController._RPC:
             raise AttributeError(name)
-        return lambda *args: self._call(name, *args)
+        return lambda *args, **kwargs: self._call(name, *args, **kwargs)
 
 
 def controller_at(address: Optional[str]):

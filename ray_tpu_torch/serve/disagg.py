@@ -38,6 +38,16 @@ contract.
 The pools' replicas take one card each with ``num_gpus`` (default 1):
 the prefill pool's first, then the decode pool's; the ingress runs on
 the CPU and never starts CUDA.
+
+The trace plane (``serve/trace.py``): the ingress opens one
+``serve.decode_attempt`` hop an attempt (so a decode replica that dies
+with its unshipped spans still leaves every attempt in the ledger row);
+the decode replica's ``serve.stream`` covers obtaining the prefill, the
+splice and the tokens, with ``serve.kv_handoff`` (the prefill pool's call
+and the file's read, bytes attached) or a local ``serve.prefill`` under
+it; the prefill replica's own ``serve.prefill`` lands in the same trace.
+Handed-off bytes and re-dispatched streams are counted
+(``rtpu_serve_handoff_bytes_total``, ``rtpu_serve_reroutes_total``).
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ import torch
 from .. import flags
 from ..device import resolve_device
 from . import context as serve_context
+from . import trace
 from .admission import BackPressureError
 from .controller import check_cards, replica_cards
 from .deployment import Application, deployment
@@ -63,14 +74,44 @@ from .prefix_cache import PrefixCache, prefix_key
 
 logger = logging.getLogger(__name__)
 
+_disagg_metrics_cache = None
+
+
+def _disagg_metrics():
+    global _disagg_metrics_cache
+    if _disagg_metrics_cache is None:
+        from ..util.metrics import Counter
+
+        _disagg_metrics_cache = {
+            "handoff": Counter(
+                "rtpu_serve_handoff_bytes_total",
+                description="K/V bytes handed off prefill->decode (the "
+                            "handoff file between the two replicas)",
+                tag_keys=("model",)),
+            "reroutes": Counter(
+                "rtpu_serve_reroutes_total",
+                description="Token streams re-dispatched to another "
+                            "decode replica after a mid-stream replica "
+                            "failure",
+                tag_keys=("model",)),
+        }
+    return _disagg_metrics_cache
+
+
+def _blob_bytes(blob: Dict[str, Any]) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (blob["k"], blob["v"], blob["logits"]))
+
 
 class PrefillWorker:
     """Length-bucketed prefill; returns the handoff blob as its call
     result (a file, read back by the decode replica)."""
 
     def __init__(self, cfg, params_factory, *, max_prompt_len: int,
-                 quantize_int8: bool = False, device=None):
+                 quantize_int8: bool = False, device=None,
+                 name: str = "llm"):
         self.cfg = cfg
+        self.name = name
         self.device = resolve_device(device)
         self.max_prompt_len = max_prompt_len
         self._params = load_params(params_factory, self.device, quantize_int8)
@@ -88,6 +129,11 @@ class PrefillWorker:
 
         with self._lock:
             self._inflight += 1
+        # The prefill on THIS replica's clock: the nested handle call
+        # carried the trace over, so it lands in the decode side's
+        # waterfall.
+        hop = trace.start_hop("serve.prefill", kind="prefill",
+                              attributes={"model": self.name})
         try:
             ids = np.asarray(tokens, np.int64)
             if ids.ndim != 1 or ids.size == 0:
@@ -102,9 +148,19 @@ class PrefillWorker:
                     self._params, torch.from_numpy(padded).to(self.device),
                     self.cfg, S,
                     lengths=torch.tensor([len(ids)], device=self.device))
-                return {"k": cache.k[:, 0].cpu(), "v": cache.v[:, 0].cpu(),
-                        "length": len(ids), "logits": logits[0].cpu()}
+                out = {"k": cache.k[:, 0].cpu(), "v": cache.v[:, 0].cpu(),
+                       "length": len(ids), "logits": logits[0].cpu()}
+            if hop is not None:
+                hop.attributes.update(prompt_len=len(ids), bucket=S)
+            return out
+        except BaseException as e:
+            if hop is not None:
+                hop.end(error=type(e).__name__)
+                hop = None
+            raise
         finally:
+            if hop is not None:
+                hop.end()
             with self._lock:
                 self._inflight -= 1
 
@@ -134,6 +190,8 @@ class DecodeWorker:
         self.device = resolve_device(device)
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
+        self.name = name
+        self._mtags = {"model": name}
         params = load_params(params_factory, self.device, quantize_int8)
         self._engine = ContinuousBatchingEngine(
             cfg, params, num_slots=num_slots, max_prompt_len=max_prompt_len,
@@ -167,25 +225,48 @@ class DecodeWorker:
             return e.k, e.v, e.length, e.logits
         blob = None
         if self._prefill_pool is not None:
+            # The handoff's span: the prefill pool's call and the file's
+            # read; its dwell IS the transfer time, bytes attached.
+            hop = trace.start_hop("serve.kv_handoff", kind="handoff",
+                                  attributes={"model": self.name})
             try:
                 t0 = time.perf_counter()
                 resp = self._prefill_pool.prefill.remote(
                     [int(x) for x in ids])
                 blob = resp.result(timeout=timeout)
+                nbytes = _blob_bytes(blob)
+                _disagg_metrics()["handoff"].inc(float(nbytes),
+                                                 tags=self._mtags)
                 with self._handoff_lock:
                     self.handoff["n"] += 1
                     self.handoff["bytes"] += resp.file_bytes
                     self.handoff["call_s"] += time.perf_counter() - t0
                     self.handoff["read_s"] += resp.file_load_s
+                if hop is not None:
+                    hop.end(bytes=nbytes)
             except (BackPressureError,
-                    serve_context.DeadlineExceededError):
+                    serve_context.DeadlineExceededError) as exc:
+                if hop is not None:
+                    hop.end(error=type(exc).__name__)
                 raise
             except Exception as exc:  # noqa: BLE001 — fall back locally
+                if hop is not None:
+                    hop.end(error=type(exc).__name__)
                 logger.warning("prefill pool unavailable (%s); falling "
                                "back to local prefill", exc)
                 blob = None
         if blob is None:
-            k, v, length, logits = self._engine.prefill_only(ids)
+            hop = trace.start_hop("serve.prefill", kind="prefill",
+                                  attributes={"model": self.name,
+                                              "local": True})
+            try:
+                k, v, length, logits = self._engine.prefill_only(ids)
+            except BaseException as exc:
+                if hop is not None:
+                    hop.end(error=type(exc).__name__)
+                raise
+            if hop is not None:
+                hop.end()
             blob = {"k": k, "v": v, "length": length, "logits": logits}
         self._cache.put(h, blob["k"], blob["v"], blob["length"],
                         blob["logits"])
@@ -209,8 +290,9 @@ class DecodeWorker:
                 eos_id=eos, timeout=timeout,
                 queue_wait_s=serve_context.elapsed_s())
 
-        yield from stream_engine(self._engine, self.cancels, ids, n, temp,
-                                 eos, attach=attach)
+        yield from stream_engine(
+            self._engine, self.cancels, ids, n, temp, eos, attach=attach,
+            hop_attributes={"prefix_hit": h in self._cache})
 
     # -------------------------------------------------------- prefix plane
 
@@ -265,6 +347,7 @@ class DisaggIngress:
                  max_prompt_len: int = 256):
         self._decode = decode_handle
         self.name = name
+        self._mtags = {"model": name}
         self.max_prompt_len = max_prompt_len
         self.reroutes = 0
 
@@ -289,6 +372,13 @@ class DisaggIngress:
         attempt = 0
         while True:
             stream = None
+            # One span an attempt, on this replica's clock: a decode
+            # replica that dies takes its unshipped spans with it, but the
+            # ledger row still links every attempt.
+            attempt_hop = trace.start_hop(
+                "serve.decode_attempt", kind="ingress",
+                attributes={"model": self.name, "attempt": attempt + 1,
+                            "skip": sent})
             try:
                 stream = self._decode.options(
                     stream=True, multiplexed_model_id=h).remote(request)
@@ -311,6 +401,9 @@ class DisaggIngress:
             except (BackPressureError, serve_context.DeadlineExceededError):
                 raise
             except Exception as e:
+                if attempt_hop is not None:
+                    attempt_hop.end(error=type(e).__name__, sent=sent)
+                    attempt_hop = None
                 if sent and not greedy:
                     yield {"error": "decode replica died mid-stream; "
                                     "sampled (temperature > 0) streams "
@@ -322,6 +415,7 @@ class DisaggIngress:
                                     f"attempts: {e}"}
                     return
                 self.reroutes += 1
+                _disagg_metrics()["reroutes"].inc(1.0, tags=self._mtags)
                 logger.warning(
                     "decode stream for %s died (%s); re-routing (attempt "
                     "%d, %d tokens already delivered)", self.name, e,
@@ -332,6 +426,8 @@ class DisaggIngress:
                     pass
                 time.sleep(min(0.25 * attempt, 1.0))
             finally:
+                if attempt_hop is not None:
+                    attempt_hop.end(sent=sent)
                 if stream is not None:
                     stream.close()
 
@@ -391,7 +487,7 @@ def build_disagg_llm_deployment(cfg, params_factory, *, name: str = "llm",
                     prefill.bind(cfg, params_factory,
                                  max_prompt_len=max_prompt_len,
                                  quantize_int8=quantize_int8,
-                                 device=device),
+                                 device=device, name=name),
                     name=name, num_slots=num_slots,
                     max_prompt_len=max_prompt_len,
                     max_new_tokens=max_new_tokens,

@@ -10,7 +10,9 @@ per-app protoc stubs: ``/rtpu.serve/Call`` takes ``{"route": "/prefix",
 Routing, replica choice and multiplexing ride the same DeploymentHandle
 path as HTTP and Python callers; the status mapping is the HTTP proxy's
 (RESOURCE_EXHAUSTED with ``retry-after-s`` for back-pressure,
-DEADLINE_EXCEEDED, INTERNAL).
+DEADLINE_EXCEEDED, INTERNAL). Every call gets an ``x-request-id`` at
+ingress (the envelope's ``request_id``, or one minted here), sent back
+in the initial metadata, and roots its trace there (``serve.grpc``).
 
 ``grpc`` is imported when the proxy starts, never before: without the
 package, ``serve.run(_grpc=True)`` raises an ImportError naming it.
@@ -21,11 +23,11 @@ import json
 from concurrent import futures
 from typing import Any, Dict, Optional
 
+from . import trace
 from .admission import BackPressureError
 from .context import DeadlineExceededError
 from .handle import DeploymentHandle
-from .proxy import (finish_trace, new_request_id, request_timeout_s,
-                    request_trace)
+from .proxy import finish_trace, request_timeout_s, request_trace, traced
 
 
 def import_grpc():
@@ -45,7 +47,7 @@ def ingress_request_id(request) -> str:
     rid = request.get("request_id")
     if isinstance(rid, str) and rid:
         return rid
-    return new_request_id()
+    return trace.new_request_id()
 
 
 def _ser(obj) -> bytes:
@@ -147,7 +149,7 @@ class GRPCProxy:
         try:
             handle, info = self._handle_for(request)
             root = request_trace(rid, info["name"], "grpc", "Call")
-            result = handle.options(
+            result = traced(handle, root, rid).options(
                 deadline_s=request_timeout_s(request.get("timeout_s")),
             ).remote(request.get("input")).result()
             finish_trace(root, "ok")
@@ -175,7 +177,7 @@ class GRPCProxy:
         try:
             handle, info = self._handle_for(request)
             root = request_trace(rid, info["name"], "grpc", "CallStream")
-            stream = handle.options(
+            stream = traced(handle, root, rid).options(
                 stream=True,
                 deadline_s=request_timeout_s(request.get("timeout_s")),
             ).remote(request.get("input"))

@@ -14,6 +14,14 @@ through the driver. A call is one connection to the replica
 (``serve/replica.py``): :class:`DeploymentResponse` reads its one reply,
 :class:`DeploymentStreamingResponse` its items; closing either before
 its end sends the replica a cancel.
+
+The trace plane (``serve/trace.py``): ``Router.assign`` opens the
+``serve.assign`` hop (ended at dispatch), under the ingress's root
+(``options(trace_ctx=...)``), the enclosing request's trace (a nested
+call), or, for a bare call from a driver, a root it opens itself; the
+response then owns that root's ledger record and closes it with the
+call's terminal status. The router also counts sheds, deadlines and
+cancels (``admission.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from .. import flags
 from . import admission
 from . import context as serve_context
 from . import controller as serve_controller
+from . import trace
 from .context import DeadlineExceededError
 from .replica import (ReplicaClient, ReplicaDiedError, ReplicaError,
                       load_value, raise_remote, read_reply)
@@ -51,6 +60,8 @@ class DeploymentResponse:
         self._admit = admit
         self._done = False
         self._reply = None
+        # The root trace this call owns (a bare driver call), if any.
+        self._root = None
         self.file_bytes = 0
         self.file_load_s = 0.0
 
@@ -77,16 +88,22 @@ class DeploymentResponse:
                     and time.time() >= self._deadline_ts):
                 # The request's own budget ran out: the client's
                 # deadline, not a replica fault (no breaker strike).
+                admission.deadline_exceeded(self._router.name)
+                self._finish("deadline", error=str(e))
                 raise DeadlineExceededError(
                     f"request to {self._router.name} deadline exceeded "
                     f"while awaiting the result") from e
             self._note(e)
+            self._finish("error", error=str(e))
             raise
         except Exception as e:
             self._note(e)
+            self._finish("deadline" if isinstance(e, DeadlineExceededError)
+                         else "error", error=str(e))
             raise
         else:
             self._note(None)
+            self._finish("ok")
             return value
         finally:
             self._release()
@@ -95,7 +112,13 @@ class DeploymentResponse:
         """Cancel the call: a request still queued on the replica never
         runs; a running one sees ``serve.context.cancelled()``."""
         self._close(cancel=True)
+        admission.cancelled(self._router.name)
+        self._finish("cancelled")
         self._release()
+
+    def _finish(self, status: str, **attrs) -> None:
+        if self._root is not None:
+            self._root.finish(status, **attrs)
 
     def _close(self, cancel: bool = False) -> None:
         conn, self._conn = self._conn, None
@@ -116,6 +139,9 @@ class DeploymentResponse:
         if not self._done:
             self._done = True
             self._router._on_done(self._replica_key)
+            # A fire-and-forget caller never sees the outcome: its record
+            # closes as ok here (the first finish wins).
+            self._finish("ok")
 
     def __del__(self):
         # Fire-and-forget callers never call result(): without this the
@@ -142,6 +168,7 @@ class DeploymentStreamingResponse:
         self._done = False
         self._exhausted = False
         self._items = 0
+        self._root = None
 
     def __iter__(self):
         return self
@@ -163,17 +190,22 @@ class DeploymentStreamingResponse:
         except TimeoutError:
             # The consumer's budget ran out mid-stream: stop pulling and
             # close the producer (frees its engine slot).
+            admission.deadline_exceeded(self._router.name)
+            self._finish("deadline")
             self._release()
             raise DeadlineExceededError(
                 f"stream from {self._router.name} deadline exceeded") from None
         except Exception as e:
             self._note(e)
             self._exhausted = True
+            self._finish("deadline" if isinstance(e, DeadlineExceededError)
+                         else "error", error=str(e))
             self._release()
             raise
         if status == "end":
             self._exhausted = True
             self._note(None)
+            self._finish("ok")
             self._release()
             raise StopIteration
         self._items += 1
@@ -183,7 +215,14 @@ class DeploymentStreamingResponse:
         """The client walked away: the replica closes its producer
         generator (``GeneratorExit`` aborts the engine request, freeing
         its KV slot)."""
+        if not self._done and not self._exhausted:
+            admission.cancelled(self._router.name)
+            self._finish("cancelled")
         self._release()
+
+    def _finish(self, status: str, **attrs) -> None:
+        if self._root is not None:
+            self._root.finish(status, items=self._items, **attrs)
 
     def _note(self, err: Optional[BaseException]) -> None:
         if self._admit:
@@ -193,6 +232,9 @@ class DeploymentStreamingResponse:
         if self._done:
             return
         self._done = True
+        # Dropped without an outcome (__del__): before its end a
+        # cancellation (the first finish wins).
+        self._finish("ok" if self._exhausted else "cancelled")
         conn, self._conn = self._conn, None
         if conn is not None:
             if not self._exhausted:
@@ -271,6 +313,7 @@ class Router:
                         ) -> List[ReplicaClient]:
         ok = [r for r in reps if self._board.would_allow(r.replica_id)]
         if not ok:
+            admission.shed(self.name, "breaker_open")
             raise admission.BackPressureError(
                 f"all replicas of {self.name} have open circuit breakers",
                 retry_after_s=flags.get("RTPU_SERVE_BREAKER_COOLDOWN_S"))
@@ -333,9 +376,11 @@ class Router:
     def _note_result(self, key: str, err: Optional[BaseException]) -> None:
         """Result-side accounting: successes close breakers, replica
         faults strike them; deadlines are the client's, never a
-        replica's fault."""
+        replica's fault (they go to their counter)."""
         if err is None:
             self._board.on_success(key)
+        elif isinstance(err, DeadlineExceededError):
+            admission.deadline_exceeded(self.name)
         elif isinstance(err, (ReplicaDiedError, ReplicaError,
                               TimeoutError)):
             self._board.on_failure(key)
@@ -357,6 +402,7 @@ class Router:
             return
         cap = n * self._max_ongoing + max_q
         if total >= cap:
+            admission.shed(self.name, "queue_full")
             raise admission.BackPressureError(
                 f"deployment {self.name} is at capacity: {total} requests "
                 f"in flight >= {n} replicas x {self._max_ongoing} ongoing "
@@ -366,11 +412,58 @@ class Router:
     def assign(self, method_name: str, args, kwargs,
                retries: int = 3, stream: bool = False,
                multiplexed_model_id: str = "",
-               deadline_ts: Optional[float] = None):
+               deadline_ts: Optional[float] = None,
+               request_id: str = "",
+               trace_ctx: Optional[dict] = None):
         """Route one request: pick a replica, connect and send the call.
         A replica that cannot be reached is struck and the call goes to
         another (at most ``retries`` attempts, spending the retry
-        budget)."""
+        budget).
+
+        ``trace_ctx`` is an ingress's wire trace context; without one, a
+        nested call inherits the enclosing request's trace from the serve
+        context, and a bare driver call ROOTS a new trace here (named
+        ``request_id``; its response then owns the ledger record)."""
+        root = hop = None
+        if trace.enabled():
+            wire = trace_ctx or trace.current_trace_ctx()
+            if wire is None:
+                root = trace.start_request(
+                    request_id=request_id, deployment=self.name,
+                    proto="python", method=method_name)
+                wire = root.trace_ctx
+            hop = trace.start_hop("serve.assign", kind="router",
+                                  trace_ctx=wire, deployment=self.name)
+            # Downstream spans parent under the CALLER (the root or the
+            # enclosing replica), not the assign hop: assign ends at
+            # dispatch, so execution nested under it would be counted
+            # twice in the waterfall's exclusive times.
+            trace_ctx = wire
+        else:
+            trace_ctx = None
+        try:
+            resp = self._assign(method_name, args, kwargs, retries, stream,
+                                multiplexed_model_id, deadline_ts,
+                                trace_ctx, hop)
+        except BaseException as e:
+            if hop is not None:
+                hop.end(error=type(e).__name__)
+            if root is not None:
+                root.finish("shed"
+                            if isinstance(e, admission.BackPressureError)
+                            else "deadline"
+                            if isinstance(e, DeadlineExceededError)
+                            else "error", error=str(e))
+            raise
+        if hop is not None:
+            hop.end()
+        resp._root = root
+        return resp
+
+    def _assign(self, method_name: str, args, kwargs, retries: int,
+                stream: bool, multiplexed_model_id: str,
+                deadline_ts: Optional[float],
+                trace_ctx: Optional[dict], hop):
         if deadline_ts is None:
             # Nested composition: a handle call made INSIDE a serve
             # request inherits the enclosing request's budget.
@@ -383,6 +476,7 @@ class Router:
         if start_ts is None:
             start_ts = time.time()
         if deadline_ts is not None and time.time() > deadline_ts:
+            admission.deadline_exceeded(self.name)
             raise DeadlineExceededError(
                 f"request to {self.name} expired before assignment")
         self._refresh()
@@ -403,6 +497,7 @@ class Router:
                 time.sleep(delay)
                 self._refresh(force=True)
                 if deadline_ts is not None and time.time() > deadline_ts:
+                    admission.deadline_exceeded(self.name)
                     raise DeadlineExceededError(
                         f"request to {self.name} expired while retrying")
             try:
@@ -423,9 +518,12 @@ class Router:
             queue_wait = serve_context.elapsed_s()
             if queue_wait is None:
                 queue_wait = time.monotonic() - assign_mono
+            if hop is not None:
+                hop.attributes.update(attempts=attempt + 1, replica=rid,
+                                      queue_wait_s=round(queue_wait, 6))
             meta = {"multiplexed_model_id": multiplexed_model_id,
                     "deadline_ts": deadline_ts, "start_ts": start_ts,
-                    "queue_wait_s": queue_wait}
+                    "queue_wait_s": queue_wait, "trace_ctx": trace_ctx}
             try:
                 conn = replica.open("stream" if stream else "request",
                                     method_name, args, kwargs, meta)
@@ -450,12 +548,16 @@ class DeploymentHandle:
     def __init__(self, deployment_name: str, method_name: str = "__call__",
                  stream: bool = False, multiplexed_model_id: str = "",
                  deadline_s: Optional[float] = None,
-                 controller_address: Optional[str] = None):
+                 controller_address: Optional[str] = None,
+                 request_id: str = "",
+                 trace_ctx: Optional[dict] = None):
         self.deployment_name = deployment_name
         self._method_name = method_name
         self._stream = stream
         self._multiplexed_model_id = multiplexed_model_id
         self._deadline_s = deadline_s
+        self._request_id = request_id
+        self._trace_ctx = trace_ctx
         self._controller_address = (controller_address
                                     or serve_controller.current_address())
         self._router: Optional[Router] = None
@@ -472,12 +574,19 @@ class DeploymentHandle:
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+        self._request_id = ""
+        self._trace_ctx = None
         self._router = None
 
     def options(self, *, method_name: Optional[str] = None,
                 stream: Optional[bool] = None,
                 multiplexed_model_id: Optional[str] = None,
-                deadline_s: Optional[float] = None) -> "DeploymentHandle":
+                deadline_s: Optional[float] = None,
+                request_id: Optional[str] = None,
+                trace_ctx: Optional[dict] = None) -> "DeploymentHandle":
+        """``request_id`` names the trace a bare call roots; ``trace_ctx``
+        hands over an already rooted trace (a proxy's root span), making
+        the proxy, not the response, the owner of the ledger record."""
         h = DeploymentHandle(
             self.deployment_name,
             method_name if method_name is not None else self._method_name,
@@ -485,7 +594,9 @@ class DeploymentHandle:
             (multiplexed_model_id if multiplexed_model_id is not None
              else self._multiplexed_model_id),
             deadline_s if deadline_s is not None else self._deadline_s,
-            self._controller_address)
+            self._controller_address,
+            request_id if request_id is not None else self._request_id,
+            trace_ctx if trace_ctx is not None else self._trace_ctx)
         h._router = self._ensure_router()
         return h
 
@@ -520,4 +631,5 @@ class DeploymentHandle:
         return self._ensure_router().assign(
             self._method_name, args, kwargs, stream=self._stream,
             multiplexed_model_id=self._multiplexed_model_id,
-            deadline_ts=deadline_ts)
+            deadline_ts=deadline_ts, request_id=self._request_id,
+            trace_ctx=self._trace_ctx)

@@ -18,6 +18,11 @@ reference) and take the config, the params factory and the builder's
 options as ``bind()`` arguments; ``params_factory`` is a zero-argument
 picklable callable that makes (or loads) the params in the replica
 process.
+
+A stream through the engine is a ``serve.stream`` hop of its request's
+trace (``serve/trace.py``), opened before the prefill (or the splice of
+a prefilled blob) and ended after its last token, with the engine's
+token stats (count, TTFT, gaps between tokens, abort cause) attached.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from ..device import resolve_device
 from . import batching
 from . import context as serve_context
+from . import trace
 from .controller import check_cards, replica_cards
 from .deployment import Deployment, deployment
 
@@ -311,13 +317,18 @@ class StreamingLLM:
 
 
 def stream_engine(engine, cancels: List[Dict[str, Any]], ids, n: int,
-                  temp: float, eos: Optional[int], *, attach=None):
+                  temp: float, eos: Optional[int], *, attach=None,
+                  hop_attributes: Optional[Dict[str, Any]] = None):
     """Stream one request's tokens through a running engine: submit (or
     ``attach()``, a prefilled splice), then poll every 5 ms and yield
     {"token": id} chunks as the slot emits them. The caller's cancel
     aborts the engine request at once (freeing the KV slot between
     decode steps, recorded in ``cancels``); a closed generator, a passed
-    deadline or an error aborts it in the ``finally``."""
+    deadline or an error aborts it in the ``finally``. The whole stream
+    is its request's ``serve.stream`` hop (``hop_attributes`` added)."""
+    hop = trace.start_hop("serve.stream", kind="decode",
+                          attributes=dict(hop_attributes or {},
+                                          model=engine.model))
     try:
         # The slot wait is bounded by the request's remaining deadline
         # budget; TTFT measures from system arrival (queue wait counts).
@@ -331,8 +342,14 @@ def stream_engine(engine, cancels: List[Dict[str, Any]], ids, n: int,
     except TimeoutError as e:
         # Backpressure uses the same error-chunk contract as malformed
         # requests, not a raw stream exception.
+        if hop is not None:
+            hop.end(status="slot_timeout")
         yield {"error": f"overloaded: {e}"}
         return
+    except BaseException as e:
+        if hop is not None:
+            hop.end(error=type(e).__name__)
+        raise
 
     cancel = (serve_context.get_request_context() or {}).get("cancel")
 
@@ -345,19 +362,23 @@ def stream_engine(engine, cancels: List[Dict[str, Any]], ids, n: int,
     if cancel is not None:
         cancel.add(free)
     sent = 0
+    status = "ok"
     try:
         while True:
             if serve_context.cancelled():
+                status = "cancelled"
                 return
             if serve_context.expired():
                 # Deadline passed mid-decode: stop emitting; the finally's
                 # abort frees the slot now.
+                status = "deadline"
                 raise serve_context.DeadlineExceededError(
                     "request deadline passed mid-stream")
             try:
                 toks = engine.peek(req)
             except KeyError:
                 if serve_context.cancelled():
+                    status = "cancelled"
                     return  # aborted by the cancel meanwhile
                 raise
             while sent < len(toks):
@@ -365,12 +386,14 @@ def stream_engine(engine, cancels: List[Dict[str, Any]], ids, n: int,
                 sent += 1
             if engine.check_failed() is not None \
                     and not engine.is_done(req):
+                status = "engine_failed"
                 yield {"error": "generation engine failed"}
                 return
             if engine.is_done(req):
                 try:
                     tail = engine.pop_result(req)[sent:]
                 except RuntimeError as e:
+                    status = "engine_failed"
                     yield {"error": str(e)}
                     return
                 for tok in tail:
@@ -378,11 +401,28 @@ def stream_engine(engine, cancels: List[Dict[str, Any]], ids, n: int,
                     sent += 1
                 return
             time.sleep(0.005)
+    except BaseException as e:
+        if status == "ok":
+            status = ("cancelled" if isinstance(e, GeneratorExit)
+                      else type(e).__name__)
+        raise
     finally:
         # A closed generator (the caller went away) or a deadline: abort
         # frees the KV slot between engine steps. After a normal
-        # pop_result this is a no-op.
+        # pop_result this is a no-op. The token stats are read first
+        # (an abort of a live request records its cause).
+        st = engine.token_stats(req) or {}
+        if cancel is not None and cancel.event.is_set():
+            # The cancel's own abort, where this thread saw the cancel
+            # before its callback ran: the first abort records it.
+            free()
         engine.abort(req)
+        if hop is not None:
+            attrs: Dict[str, Any] = {"sent": sent, "status": status}
+            for k, v in st.items():
+                if v is not None:
+                    attrs[k] = round(v, 6) if isinstance(v, float) else v
+            hop.end(**attrs)
 
 
 def build_streaming_llm_deployment(cfg, params_factory, *,

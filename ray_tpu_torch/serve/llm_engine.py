@@ -19,11 +19,17 @@ long-lived engine; the decode step clamps their cache writes to the last
 slot and the tick never checks for overflow. A splice fully re-initialises
 a slot on attach.
 
-The cluster-facing parts of the JAX engine (trace hops, the serve metrics
-instruments, the stall event) go through one hook, :func:`_serve_hook`;
-the port has no trace or metrics plane yet, so it does nothing.
-The engine-local token timeline (``token_stats``, ``last_token_age``) is
-kept here.
+The serve trace and metrics plane, as in the JAX engine
+(``ray_tpu/serve/llm_engine.py:36-75``, ``:223``, ``:302``, ``:360``,
+``:524``, ``:559``, ``:577``, ``:651-660``): the ``serve.prefill`` and
+``serve.engine_attach`` hops (``serve/trace.py``), the TTFT,
+decode-token, slot and inter-token instruments (:func:`_serve_metrics`,
+``util/metrics.py``), and the STREAM_STALLED event (``core/events.py``)
+that ``peek`` raises once for a live slot silent for
+RTPU_SERVE_STALL_S. The per-request token timeline
+(``token_stats``, ``last_token_age``, the ITL observations, the stall
+detector) is kept only with RTPU_SERVE_TRACE on: off, it costs one flag
+check.
 
 Sampling uses one seeded ``torch.Generator`` on the engine's device, for the
 first token (``_pick_host``) and for every tick; greedy decoding is
@@ -44,25 +50,58 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import flags
 from ..device import DeviceLike, resolve_device, same_device
 from ..models.generate import KVCache, _decode, _gumbel_argmax, prefill
+from . import context as serve_context
+from . import trace as serve_trace
+
+_serve_metrics_cache = None
 
 
-def _serve_hook(kind: str, **fields: Any) -> None:
-    """The engine's one seam to the serving cluster: the trace hops
-    (``prefill``, ``engine_attach``), the serve metrics (``ttft``,
-    ``tokens``, ``slots_busy``, ``itl``) and the stall event (``stall``).
-    A no-op until the port has a trace and metrics plane (serve/trace.py
-    is a later slice)."""
+def _serve_metrics():
+    """The engine's serve instruments, shared by every engine of the
+    process and tagged by model: TTFT, decode tokens, busy slots and the
+    gap between tokens."""
+    global _serve_metrics_cache
+    if _serve_metrics_cache is None:
+        from ..util.metrics import Counter, Gauge, Histogram
+
+        _serve_metrics_cache = {
+            "ttft": Histogram(
+                "rtpu_serve_ttft_s",
+                description="Serve time-to-first-token: request submit "
+                            "to first sampled token (prefill + splice "
+                            "wait)",
+                boundaries=[0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                            10.0, 30.0],
+                tag_keys=("model",)),
+            "tokens": Counter(
+                "rtpu_serve_decode_tokens_total",
+                description="Decode tokens emitted by the "
+                            "continuous-batching engine",
+                tag_keys=("model",)),
+            "slots": Gauge(
+                "rtpu_serve_slots_busy",
+                description="Continuous-batching slots currently "
+                            "generating",
+                tag_keys=("model",)),
+            "itl": Histogram(
+                "rtpu_serve_itl_s",
+                description="Serve inter-token latency: gap between "
+                            "consecutive sampled tokens of one stream "
+                            "(per decode tick, engine-side)",
+                boundaries=[0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                            0.5, 1.0, 5.0],
+                tag_keys=("model",)),
+        }
+    return _serve_metrics_cache
 
 
 # Per-request token-timestamp ring capacity and the bounded finished-stats
 # map: enough stamps to characterize ITL tails without unbounded growth.
 _TOKEN_RING = 2048
 _DONE_STATS_MAX = 1024
-# Stream-stall threshold: a live slot that emits no token for this many
-# seconds is flagged once per request.
-_STALL_S = 30.0
 # Longest a tick waits for blocked lock takers to get in first (a safety
 # bound: a woken taker normally gets the lock within a millisecond).
 _YIELD_MAX_S = 0.05
@@ -134,6 +173,7 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         self.params = params
         self.model = model or "default"
+        self._mtags = {"model": self.model}
         self.B = num_slots
         self.max_prompt_len = max_prompt_len
         self.max_new = max_new_tokens
@@ -253,10 +293,19 @@ class ContinuousBatchingEngine:
         mono0 = time.monotonic()
         padded, length_t, n, S = self._prepare(tokens)
         # Prefill OUTSIDE the engine lock.
-        t0 = time.monotonic()
-        logits1, k1, v1 = self._prefill_one(self.params, padded, length_t)
-        _serve_hook("prefill", model=self.model, prompt_len=n, bucket=S,
-                    seconds=time.monotonic() - t0)
+        hop = serve_trace.start_hop(
+            "serve.prefill", kind="prefill",
+            attributes={"model": self.model, "prompt_len": n, "bucket": S,
+                        "local": True})
+        try:
+            logits1, k1, v1 = self._prefill_one(self.params, padded,
+                                                length_t)
+        except BaseException as e:
+            if hop is not None:
+                hop.end(error=type(e).__name__)
+            raise
+        if hop is not None:
+            hop.end()
         return self._attach(k1, v1, n, logits1,
                             max_new_tokens=max_new_tokens,
                             temperature=temperature, eos_id=eos_id,
@@ -305,14 +354,26 @@ class ContinuousBatchingEngine:
         """Shared slot-wait + splice tail of submit()/attach_prefilled():
         k1/v1 are [L, S, KVH, hd] on the engine's device, logits1 the [V]
         row. ``mono0`` is the caller's entry stamp so prefill time counts
-        toward TTFT."""
-        t0 = time.monotonic()
-        req = self._attach_locked(
-            k1, v1, length, logits1, max_new_tokens=max_new_tokens,
-            temperature=temperature, eos_id=eos_id, timeout=timeout,
-            arrival_ts=arrival_ts, queue_wait_s=queue_wait_s, mono0=mono0)
-        _serve_hook("engine_attach", model=self.model, req=req,
-                    seconds=time.monotonic() - t0)
+        toward TTFT.
+
+        The ``serve.engine_attach`` hop covers this process's slot wait
+        and splice (the waterfall's "engine slot wait" bar); it rides the
+        caller thread's serve context, so it nests under the replica's
+        span."""
+        hop = serve_trace.start_hop("serve.engine_attach", kind="engine",
+                                    attributes={"model": self.model})
+        try:
+            req = self._attach_locked(
+                k1, v1, length, logits1, max_new_tokens=max_new_tokens,
+                temperature=temperature, eos_id=eos_id, timeout=timeout,
+                arrival_ts=arrival_ts, queue_wait_s=queue_wait_s,
+                mono0=mono0, hop=hop)
+        except BaseException as e:
+            if hop is not None:
+                hop.end(error=type(e).__name__)
+            raise
+        if hop is not None:
+            hop.end()
         return req
 
     def _attach_locked(self, k1, v1, length: int, logits1: torch.Tensor, *,
@@ -320,7 +381,7 @@ class ContinuousBatchingEngine:
                        eos_id: Optional[int], timeout: Optional[float],
                        arrival_ts: Optional[float],
                        queue_wait_s: Optional[float] = None,
-                       mono0: Optional[float] = None) -> int:
+                       mono0: Optional[float] = None, hop=None) -> int:
         if mono0 is None:
             mono0 = time.monotonic()
         with self._free_cv:
@@ -361,11 +422,17 @@ class ContinuousBatchingEngine:
                 ttft = max(0.0, time.time() - float(arrival_ts))
             else:
                 ttft = local_wait
-            _serve_hook("ttft", model=self.model, seconds=ttft)
-            _serve_hook("tokens", model=self.model, n=1)
-            self._token_times[req] = collections.deque(
-                [time.monotonic()], maxlen=_TOKEN_RING)
-            self._ttft_vals[req] = float(ttft)
+            m = _serve_metrics()
+            m["ttft"].observe(ttft, tags=self._mtags)
+            m["tokens"].inc(1.0, tags=self._mtags)
+            if serve_trace.enabled():
+                self._token_times[req] = collections.deque(
+                    [time.monotonic()], maxlen=_TOKEN_RING)
+                self._ttft_vals[req] = float(ttft)
+            if hop is not None:
+                hop.attributes.update(
+                    slot=slot, ttft_s=round(float(ttft), 6),
+                    slot_wait_s=round(local_wait, 6))
             n = min(max_new_tokens or self.max_new, self.max_new)
             self.active[slot] = True
             self.budget[slot] = n - 1
@@ -376,8 +443,7 @@ class ContinuousBatchingEngine:
             if self.budget[slot] <= 0 or (eos_id is not None
                                           and int(first) == eos_id):
                 self._retire_locked(slot)
-            _serve_hook("slots_busy", model=self.model,
-                        n=self.B - len(self._free))
+            m["slots"].set(self.B - len(self._free), tags=self._mtags)
             return req
 
     def prefill_only(self, tokens):
@@ -468,8 +534,8 @@ class ContinuousBatchingEngine:
                 self._summarize_locked(req, cause="aborted")
                 self._discarded.add(req)
                 self._retire_locked(slot)
-                _serve_hook("slots_busy", model=self.model,
-                            n=self.B - len(self._free))
+                _serve_metrics()["slots"].set(
+                    self.B - len(self._free), tags=self._mtags)
                 return True
             if req in self._results or req in self._done_ev:
                 self._results.pop(req, None)
@@ -500,15 +566,17 @@ class ContinuousBatchingEngine:
             self.cur_tok = nxt
             emitted = 0
             now_m = time.monotonic()
+            m = _serve_metrics()
             for s in range(self.B):
                 if not self.active[s]:
                     continue
                 tok = int(nxt_host[s])
                 self.out[s].append(tok)
+                # Token timeline: one monotonic stamp a token feeds the
+                # ITL histogram and the stall detector.
                 dq = self._token_times.get(self.slot_req[s])
                 if dq is not None:
-                    _serve_hook("itl", model=self.model,
-                                seconds=now_m - dq[-1])
+                    m["itl"].observe(now_m - dq[-1], tags=self._mtags)
                     dq.append(now_m)
                 emitted += 1
                 self.budget[s] -= 1
@@ -516,9 +584,8 @@ class ContinuousBatchingEngine:
                                            and tok == self.eos[s]):
                     self._retire_locked(s)
             if emitted:
-                _serve_hook("tokens", model=self.model, n=emitted)
-                _serve_hook("slots_busy", model=self.model,
-                            n=self.B - len(self._free))
+                m["tokens"].inc(float(emitted), tags=self._mtags)
+                m["slots"].set(self.B - len(self._free), tags=self._mtags)
             return sum(self.active)
 
     # ------------------------------------------------------------- results
@@ -555,7 +622,9 @@ class ContinuousBatchingEngine:
     def peek(self, req: int) -> List[int]:
         """Tokens emitted so far (streaming consumers poll this). The stall
         detector lives here: a hung ticker cannot run its own watchdog, but
-        the polling consumer notices the silence and flags it once."""
+        the polling consumer notices the silence and fires the
+        exactly-once STREAM_STALLED event, with a stack capture of every
+        thread."""
         stalled_age = None
         with self.lock:
             done = self._results.get(req)
@@ -567,14 +636,30 @@ class ContinuousBatchingEngine:
             out = list(self.out[slot])
             dq = self._token_times.get(req)
             if dq is not None and req not in self._stall_flagged:
-                age = time.monotonic() - dq[-1]
-                if age > _STALL_S:
-                    self._stall_flagged.add(req)
-                    stalled_age = age
+                stall_s = float(flags.get("RTPU_SERVE_STALL_S") or 0.0)
+                if stall_s > 0:
+                    age = time.monotonic() - dq[-1]
+                    if age > stall_s:
+                        self._stall_flagged.add(req)
+                        stalled_age = age
         if stalled_age is not None:
-            _serve_hook("stall", model=self.model, req=req,
-                        age_s=stalled_age)
+            self._emit_stall(req, stalled_age)
         return out
+
+    def _emit_stall(self, req: int, age_s: float) -> None:
+        """Ship the STREAM_STALLED event (outside the engine lock: the
+        stack capture walks every thread's frames)."""
+        from ..core import events
+
+        rid = serve_context.get_request_id()
+        events.emit(
+            "WARNING", "STREAM_STALLED",
+            f"stream {rid or req} on model {self.model} emitted no "
+            f"token for {age_s:.1f}s with a live slot",
+            source="serve",
+            data={"stack": serve_trace.capture_stacks(),
+                  "request_id": rid, "engine_req": req,
+                  "model": self.model, "age_s": round(age_s, 3)})
 
     # ------------------------------------------------------- token stats
 

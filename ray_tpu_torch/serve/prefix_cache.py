@@ -16,6 +16,9 @@ Two layers:
   prefixes. The controller feeds it from its replicas' stats, promotes
   hot prefixes to the replicas that lack them, and hands routers its
   ``routes()`` (``serve/controller.py``).
+
+A cache counts its hits and misses and sets its resident bytes and
+entries on the metrics plane (``util/metrics.py``), tagged by model.
 """
 from __future__ import annotations
 
@@ -29,6 +32,38 @@ import torch
 
 from .. import flags
 
+_cache_metrics_cache = None
+
+
+def _cache_metrics():
+    """The prefix cache's instruments (one set a process, model tag)."""
+    global _cache_metrics_cache
+    if _cache_metrics_cache is None:
+        from ..util.metrics import Counter, Gauge
+
+        _cache_metrics_cache = {
+            "hits": Counter(
+                "rtpu_prefix_cache_hits_total",
+                description="Prefix-cache hits: requests whose prefilled "
+                            "K/V was already resident (prefill skipped)",
+                tag_keys=("model",)),
+            "misses": Counter(
+                "rtpu_prefix_cache_misses_total",
+                description="Prefix-cache misses: requests that had to "
+                            "run (or wait for) a cold prefill",
+                tag_keys=("model",)),
+            "bytes": Gauge(
+                "rtpu_prefix_cache_bytes",
+                description="Resident prefix-cache K/V bytes on this "
+                            "replica (LRU evicts past the budget)",
+                tag_keys=("model",)),
+            "entries": Gauge(
+                "rtpu_prefix_cache_entries",
+                description="Resident prefix-cache entries on this "
+                            "replica",
+                tag_keys=("model",)),
+        }
+    return _cache_metrics_cache
 
 def prefix_key(tokens) -> str:
     """Stable hash of a token sequence: the cache/index/routing key (the
@@ -74,6 +109,7 @@ class PrefixCache:
             max_bytes = int(flags.get("RTPU_PREFIX_CACHE_MAX_MB") * 2**20)
         self.max_bytes = max_bytes
         self.model = model or "default"
+        self._mtags = {"model": self.model}
         self._lock = threading.Lock()
         self._entries: "OrderedDict[str, PrefixEntry]" = OrderedDict()
         self._bytes = 0
@@ -88,14 +124,17 @@ class PrefixCache:
         """Lookup + LRU touch; counts the hit or miss."""
         if not self.enabled:
             return None
+        m = _cache_metrics()
         with self._lock:
             e = self._entries.get(h)
             if e is None:
                 self.misses += 1
+                m["misses"].inc(1.0, tags=self._mtags)
                 return None
             self._entries.move_to_end(h)
             e.hits += 1
             self.hits += 1
+        m["hits"].inc(1.0, tags=self._mtags)
         return e
 
     def put(self, h: str, k, v, length: int, logits) -> bool:
@@ -116,6 +155,9 @@ class PrefixCache:
             while self._bytes > self.max_bytes and len(self._entries) > 1:
                 _, victim = self._entries.popitem(last=False)
                 self._bytes -= victim.nbytes
+            m = _cache_metrics()
+            m["bytes"].set(float(self._bytes), tags=self._mtags)
+            m["entries"].set(float(len(self._entries)), tags=self._mtags)
         return True
 
     def __contains__(self, h: str) -> bool:

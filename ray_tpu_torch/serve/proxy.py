@@ -27,14 +27,16 @@ power-of-two router as Python callers.
   RTPU_SERVE_REQUEST_TIMEOUT_S (<= 0: none). ``X-Request-Id`` is honoured
   or minted, and echoed on the response.
 
-``request_trace`` is the seam where the JAX proxy opens and finishes the
-request's root trace; the port's trace slice fills it.
+The proxy roots each request's trace (:func:`request_trace`, a
+``serve.http`` root under the request's id) and hands it to the handle,
+so the ledger row's wall is the proxy's end to end (dispatch, replica,
+the relay of the result or of the whole stream); :func:`finish_trace`
+closes it with the terminal status once the client has the last byte.
 """
 from __future__ import annotations
 
 import http.server
 import json
-import secrets
 import select
 import socket
 import threading
@@ -42,16 +44,25 @@ import urllib.parse
 from typing import Any, Dict, Optional
 
 from .. import flags
+from . import trace
 from .admission import BackPressureError
 from .context import DeadlineExceededError
 from .handle import DeploymentHandle, DeploymentNotFoundError
 
 
 def request_trace(request_id: str, deployment: str, proto: str,
-                  method: str):
-    """The request's root trace: None until the trace plane is ported
-    (then an object whose ``finish(status, **attrs)`` closes it)."""
-    return None
+                  method: str) -> Optional[trace.RootTrace]:
+    """The request's root trace (None with RTPU_SERVE_TRACE off)."""
+    return trace.start_request(request_id=request_id, deployment=deployment,
+                               proto=proto, method=method)
+
+
+def traced(handle: DeploymentHandle, root: Optional[trace.RootTrace],
+           request_id: str) -> DeploymentHandle:
+    """``handle`` carrying the ingress's request id and root trace."""
+    return handle.options(
+        request_id=request_id,
+        trace_ctx=root.trace_ctx if root is not None else None)
 
 
 def request_timeout_s(given: Any) -> Optional[float]:
@@ -67,10 +78,6 @@ def request_timeout_s(given: Any) -> Optional[float]:
         pass
     v = float(flags.get("RTPU_SERVE_REQUEST_TIMEOUT_S"))
     return v if v > 0 else None
-
-
-def new_request_id() -> str:
-    return secrets.token_hex(8)
 
 
 def longest_prefix(routes: Dict[str, Dict[str, Any]], path: str
@@ -221,7 +228,7 @@ class HTTPProxy:
         length = int(req.headers.get("Content-Length") or 0)
         if length:
             body = req.rfile.read(length)
-        rid = req.headers.get("X-Request-Id") or new_request_id()
+        rid = req.headers.get("X-Request-Id") or trace.new_request_id()
         hdrs = {"X-Request-Id": rid}
         info = self._match(url.path)
         if info is None:
@@ -237,7 +244,7 @@ class HTTPProxy:
                 arg = body.decode(errors="replace")
         timeout_s = request_timeout_s(req.headers.get("X-Request-Timeout-S"))
         root = request_trace(rid, name, "http", req.command)
-        handle = self._handle_for(name).options(
+        handle = traced(self._handle_for(name), root, rid).options(
             stream=bool(info.get("stream")), deadline_s=timeout_s)
         try:
             if info.get("stream"):
@@ -316,8 +323,8 @@ class HTTPProxy:
         finally:
             # Reached at the end and on a client that left: the cancel
             # frees the replica's slot at once.
-            stream.close()
             finish_trace(root, status, items=items)
+            stream.close()
         if status == "cancelled":
             req.close_connection = True
 

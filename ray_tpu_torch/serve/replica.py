@@ -29,6 +29,12 @@ own thread:
 - a result holding 1 MiB or more of arrays or tensors travels as a file
   (``procs.Spilled``) that the caller reads back and removes; the
   connection carries its name.
+
+A request's ``serve.replica`` hop (``serve/trace.py``) covers its
+execution here, under the trace its call carried (``trace_ctx`` in the
+call's meta); its attributes hold the seconds it waited in this
+replica's queue (``replica_queue_s``) and upstream (``queue_wait_s``). A
+stream's hop ends when its generator ends, after the user's own.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from ..util import procs
 from . import context as serve_context
+from . import trace
 from .admission import BackPressureError
 
 # Results with at least this many bytes of arrays or tensors go as files.
@@ -84,19 +91,12 @@ def listen(address: str):
                         backlog=LISTEN_BACKLOG)
 
 
-def connect(address: str):
+def connect(address: str, retry_s: Optional[float] = None):
     """An authenticated connection to the listener on ``address``,
-    retried for up to _CONNECT_RETRY_S while its queue is full."""
-    deadline = time.monotonic() + _CONNECT_RETRY_S
-    delay = 0.001
-    while True:
-        try:
-            return mpc.Client(address, family="AF_UNIX", authkey=authkey())
-        except BlockingIOError:
-            if time.monotonic() > deadline:
-                raise
-            time.sleep(delay)
-            delay = min(2 * delay, 0.05)
+    retried for up to ``retry_s`` (default _CONNECT_RETRY_S) while its
+    queue is full (``util/procs.py`` ``connect``)."""
+    return procs.connect(address, _CONNECT_RETRY_S if retry_s is None
+                         else retry_s)
 
 
 def socket_address(directory: str, name: str) -> str:
@@ -151,7 +151,9 @@ class ReplicaActor:
                        deadline_ts: Optional[float] = None,
                        start_ts: Optional[float] = None,
                        queue_wait_s: float = 0.0,
-                       cancel: Optional[serve_context.Cancel] = None):
+                       cancel: Optional[serve_context.Cancel] = None,
+                       trace_ctx: Optional[Dict] = None,
+                       replica_queue_s: float = 0.0):
         self._check_deadline(deadline_ts, "before replica execution")
         with self._lock:
             self._ongoing += 1
@@ -159,10 +161,24 @@ class ReplicaActor:
         token = serve_context.set_request_context(
             deadline_ts=deadline_ts, start_ts=start_ts,
             queue_wait_s=queue_wait_s,
-            multiplexed_model_id=multiplexed_model_id, cancel=cancel)
+            multiplexed_model_id=multiplexed_model_id, cancel=cancel,
+            trace_ctx=trace_ctx)
+        # Execution on this process's clock; the upstream wait it rode in
+        # on and its wait in this replica's queue are attached.
+        hop = trace.start_hop(
+            "serve.replica", kind="replica",
+            attributes={"method": method_name,
+                        "queue_wait_s": round(queue_wait_s or 0.0, 6),
+                        "replica_queue_s": round(replica_queue_s, 6)})
         try:
             return self._target(method_name)(*args, **kwargs)
+        except BaseException as e:
+            if hop is not None:
+                hop.end(error=type(e).__name__)
+            raise
         finally:
+            if hop is not None:
+                hop.end()
             serve_context.reset_request_context(token)
             with self._lock:
                 self._ongoing -= 1
@@ -174,7 +190,9 @@ class ReplicaActor:
                                  start_ts: Optional[float] = None,
                                  queue_wait_s: float = 0.0,
                                  cancel: Optional[
-                                     serve_context.Cancel] = None):
+                                     serve_context.Cancel] = None,
+                                 trace_ctx: Optional[Dict] = None,
+                                 replica_queue_s: float = 0.0):
         """Generator variant: the user handler returns a generator or
         iterable whose items stream to the caller one at a time. Closing
         this generator closes the user's (its ``finally`` runs)."""
@@ -185,16 +203,33 @@ class ReplicaActor:
         token = serve_context.set_request_context(
             deadline_ts=deadline_ts, start_ts=start_ts,
             queue_wait_s=queue_wait_s,
-            multiplexed_model_id=multiplexed_model_id, cancel=cancel)
+            multiplexed_model_id=multiplexed_model_id, cancel=cancel,
+            trace_ctx=trace_ctx)
+        # The stream's whole life here: opened before the user generator
+        # starts, ended once it has ended (exhausted, or closed by a
+        # caller that walked away).
+        hop = trace.start_hop(
+            "serve.replica", kind="replica",
+            attributes={"method": method_name, "stream": True,
+                        "queue_wait_s": round(queue_wait_s or 0.0, 6),
+                        "replica_queue_s": round(replica_queue_s, 6)})
         result = None
+        items = 0
+        error = None
         try:
             result = self._target(method_name)(*args, **kwargs)
             for item in result:
+                items += 1
                 yield item
+        except BaseException as e:
+            error = type(e).__name__
+            raise
         finally:
             close = getattr(result, "close", None)
             if close is not None:
                 close()
+            if hop is not None:
+                hop.end(items=items, **({"error": error} if error else {}))
             serve_context.reset_request_context(token)
             with self._lock:
                 self._ongoing -= 1
@@ -463,6 +498,7 @@ class _ReplicaServer:
         threading.Thread(target=self._watch, args=(conn, raw, cancel),
                          daemon=True, name="replica-watch").start()
         deadline_ts = meta.get("deadline_ts")
+        t_queue = time.monotonic()
         if not self._enter(cancel, deadline_ts):
             if not cancel.event.is_set():
                 conn.send(("err", error_payload(
@@ -470,6 +506,7 @@ class _ReplicaServer:
                         "request deadline passed while queued on the "
                         "replica"))))
             return
+        meta = dict(meta, replica_queue_s=time.monotonic() - t_queue)
         try:
             if kind == "request":
                 value = self.actor.handle_request(method, args, kwargs,
@@ -508,9 +545,11 @@ def replica_main(conn, payload: bytes, card: Optional[int],
         procs.take_card(card)
     else:
         os.environ["OMP_NUM_THREADS"] = str(num_threads)
+    from ..core import sink
     from . import controller
 
     controller.set_address(controller_address)
+    sink.set_route(address=controller_address)
     t = time.perf_counter()
     try:
         torch = sys.modules.get("torch")
@@ -539,9 +578,21 @@ def replica_main(conn, payload: bytes, card: Optional[int],
     except (EOFError, OSError):
         pass  # the controller's process is gone
     actor.prepare_shutdown()
+    final_flush()
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
+
+
+def final_flush(timeout: float = 1.0) -> None:
+    """Ship what this process's shipper (spans, ledger records, events)
+    and metrics aggregator still buffer, each giving up after about
+    ``timeout`` (os._exit skips atexit)."""
+    from ..core import sink
+    from ..util import metrics
+
+    sink.flush(timeout=timeout)
+    metrics._aggregator.flush(final=True)
 
 
 # ------------------------------------------------------- the calling side

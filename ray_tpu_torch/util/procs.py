@@ -50,6 +50,28 @@ TERMINATE_TIMEOUT_S = 5.0
 _SEQ = itertools.count(1)
 
 
+def connect(address: str, retry_s: float):
+    """An authenticated connection (this process's authkey, which spawned
+    and forked children share) to the AF_UNIX listener on ``address``,
+    retried for up to ``retry_s`` while its queue is full: past its queue
+    a connect either waits or, on some kernels, fails at once with EAGAIN
+    (the listener is alive, only busy)."""
+    import multiprocessing
+
+    deadline = time.monotonic() + retry_s
+    delay = 0.001
+    while True:
+        try:
+            return mpc.Client(
+                address, family="AF_UNIX",
+                authkey=bytes(multiprocessing.current_process().authkey))
+        except BlockingIOError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(delay)
+            delay = min(2 * delay, 0.05)
+
+
 def take_card(card: int) -> None:
     """Make ``card`` this process's CUDA card, before any CUDA work:
     ``device.py`` and ``MeshBootstrap`` read ``LOCAL_RANK``."""

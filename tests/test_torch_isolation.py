@@ -68,13 +68,17 @@ def test_package_imports_without_jax_or_ray_tpu():
     assert {rl + "utils.actor_manager", "ray_tpu_torch.parallel.collectives"
             } <= set(lines["NAMES"].split())
     assert {"ray_tpu_torch.serve." + m for m in SERVE_MODULES} | {
-        "ray_tpu_torch.core.telemetry"} <= set(lines["NAMES"].split())
+        "ray_tpu_torch.core." + m for m in CORE_MODULES} | {
+        "ray_tpu_torch.util." + m for m in PLANE_UTIL_MODULES} <= set(
+            lines["NAMES"].split())
 
 
 SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
                  "controller", "handle", "api", "llm", "prefix_cache",
                  "disagg", "llm_engine", "proxy", "grpc_proxy", "autoscaler",
-                 "multiplex")
+                 "multiplex", "trace")
+CORE_MODULES = ("telemetry", "events", "sink")
+PLANE_UTIL_MODULES = ("metrics", "tracing", "state")
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
                 "executor", "dataset", "iterator", "preprocessors")
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
@@ -526,12 +530,15 @@ if __name__ == "__main__":
 
 
 def test_serve_replica_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
-    """A CPU replica process imports every module of the Serve layer with
+    """A CPU replica process imports every module of the Serve layer and
+    of its trace and metrics plane with
     jax, the JAX package, cloudpickle and aiohttp blocked, imports none
     of them,
     runs torch on one thread and never starts CUDA; shutdown leaves no
     child process."""
-    names = ["ray_tpu_torch.serve." + m for m in SERVE_MODULES]
+    names = (["ray_tpu_torch.serve." + m for m in SERVE_MODULES]
+             + ["ray_tpu_torch.core." + m for m in CORE_MODULES]
+             + ["ray_tpu_torch.util." + m for m in PLANE_UTIL_MODULES])
     script = tmp_path / "serve_imports.py"
     script.write_text(_SERVE_SCRIPT.format(repo=str(REPO), names=names))
     proc = subprocess.run([sys.executable, str(script)], capture_output=True,
@@ -654,3 +661,38 @@ def test_serve_shutdown_stops_proxies_and_frees_the_port():
     finally:
         serve.shutdown()
     assert proxy_threads() == []
+
+
+def test_serve_shutdown_stops_the_metrics_endpoint():
+    """The serve controller serves ``GET /metrics`` on an ephemeral port;
+    after serve.shutdown() its responder and sampler threads are gone and
+    the port can be bound again; a metrics flush afterwards (no
+    controller) returns at once."""
+    import socket
+    import threading
+    import time
+    import urllib.request
+
+    from ray_tpu_torch.util import metrics, state
+
+    def plane_threads():
+        return sorted(t.name for t in threading.enumerate()
+                      if t.name in ("rtpu-metrics-http", "rtpu-metrics-tsdb"))
+
+    serve.run(_echo.bind(), route_prefix="/m")
+    addr = state.metrics_address()
+    host, port = addr.split(":")
+    metrics.Counter("isolation_probe_total").inc(2.0)
+    metrics.flush_metrics()
+    with urllib.request.urlopen(f"http://{addr}/metrics", timeout=10) as r:
+        assert "isolation_probe_total 2.0" in r.read().decode()
+    assert plane_threads() == ["rtpu-metrics-http", "rtpu-metrics-tsdb"]
+    serve.shutdown()
+    assert plane_threads() == []
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((host, int(port)))
+    metrics.Counter("isolation_probe_total").inc(1.0)
+    t = time.monotonic()
+    assert metrics.flush_metrics() is True
+    assert time.monotonic() - t < 2.0

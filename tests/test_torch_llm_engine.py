@@ -394,30 +394,90 @@ def test_token_timeline_and_stats(setup):
 
 
 def test_serve_hook_sees_ttft_tokens_and_stall(setup, monkeypatch):
-    """The cluster seam: TTFT from request ARRIVAL, token counts, slot
-    occupancy, and an exactly-once stall flag from peek()."""
+    """The engine's seams to the serving plane: TTFT from request ARRIVAL
+    on rtpu_serve_ttft_s, token counts, slot occupancy and gaps between
+    tokens on its instruments, the serve.prefill and serve.engine_attach
+    hops, and an exactly-once STREAM_STALLED event from peek()."""
     import time as _time
 
+    from ray_tpu_torch.core import events
+
     seen = []
-    monkeypatch.setattr(tengine, "_serve_hook",
-                        lambda kind, **f: seen.append((kind, f)))
+
+    class Recorder:
+        def __init__(self, kind):
+            self.kind = kind
+
+        def observe(self, v, tags=None):
+            seen.append((self.kind, v))
+
+        inc = set = observe
+
+    class Hop:
+        attributes = {}
+
+        def end(self, **attrs):
+            pass
+
+    monkeypatch.setattr(tengine, "_serve_metrics", lambda: {
+        k: Recorder(k) for k in ("ttft", "tokens", "slots", "itl")})
+    monkeypatch.setattr(tengine.serve_trace, "start_hop",
+                        lambda name, **kw: seen.append((name, None))
+                        or Hop())
+    monkeypatch.setattr(events, "emit",
+                        lambda *a, **kw: seen.append(("stall", kw)))
     eng = _engine(setup, num_slots=1, max_prompt_len=16, max_new_tokens=3)
     r = eng.submit([5, 9, 2], arrival_ts=_time.time() - 5.0)
-    ttft = [f["seconds"] for k, f in seen if k == "ttft"]
+    ttft = [v for k, v in seen if k == "ttft"]
     assert ttft and ttft[0] >= 5.0
-    monkeypatch.setattr(tengine, "_STALL_S", 1e-9)
+    monkeypatch.setenv("RTPU_SERVE_STALL_S", "1e-9")
     eng.peek(r)
     eng.peek(r)
     assert [k for k, _ in seen].count("stall") == 1
     _drain(eng)
-    tokens = sum(f["n"] for k, f in seen if k == "tokens")
+    tokens = sum(v for k, v in seen if k == "tokens")
     assert tokens == 3
-    assert [f["n"] for k, f in seen if k == "slots_busy"][-1] == 0
+    assert [v for k, v in seen if k == "slots"][-1] == 0
     kinds = {k for k, _ in seen}
-    assert {"prefill", "engine_attach", "itl"} <= kinds
+    assert {"serve.prefill", "serve.engine_attach", "itl"} <= kinds
 
 
 def test_engine_checks_device_of_params(setup):
     tcfg, tparams = setup[1], setup[3]
     with pytest.raises(ValueError, match="params live on"):
         ContinuousBatchingEngine(tcfg, tparams, device="meta")
+
+
+def test_serve_metrics_reach_prometheus(setup):
+    """The mirror of tests/test_llm_engine.py:162: a generate call records
+    TTFT, decode-token and slot-occupancy metrics that surface on the
+    serve controller's /metrics endpoint tagged by model, as the same
+    lines the JAX test asserts on its controller's."""
+    import urllib.request
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.metrics import flush_metrics
+
+    serve.start(http_port=0)
+    try:
+        eng = _engine(setup, num_slots=2, max_prompt_len=16,
+                      max_new_tokens=3, model="tiny-test")
+        r = eng.submit([5, 9, 2])
+        _drain(eng)
+        assert len(eng.result(r, timeout=60)) == 3
+        flush_metrics()
+        addr = state.metrics_address()
+        assert addr, "the serve controller serves no metrics endpoint"
+        with urllib.request.urlopen(f"http://{addr}/metrics",
+                                    timeout=5) as resp:
+            text = resp.read().decode()
+    finally:
+        serve.shutdown()
+    assert '# TYPE rtpu_serve_ttft_s histogram' in text, text[-800:]
+    assert 'rtpu_serve_ttft_s_bucket{model="tiny-test",le="+Inf"} 1' in text
+    assert 'rtpu_serve_ttft_s_count{model="tiny-test"} 1' in text
+    # 1 prefill token + 2 decode ticks = 3 tokens for the request.
+    assert 'rtpu_serve_decode_tokens_total{model="tiny-test"} 3.0' in text
+    # All slots idle again after the request retired.
+    assert 'rtpu_serve_slots_busy{model="tiny-test"} 0.0' in text

@@ -3,9 +3,10 @@
 tests/test_serve.py::test_autoscaling_up and
 tests/test_serve_disagg.py::test_autoscaler_scales_up_and_drains_down;
 ``ServeAutoscaler`` against the JAX package's on the same signal
-sequences at the same ``now``; the pending replicas of a target past the
-free cards (a divergence by design) on simulated cards; and the refusal
-of the TTFT trigger, whose metrics plane is not ported yet.
+sequences at the same ``now`` (TTFT p99 signals too); the TTFT trigger
+scaling a deployment on its replica's real TTFT histograms; and the
+pending replicas of a target past the free cards (a divergence by design)
+on simulated cards.
 
 Deployments are module-level (a replica imports this module again to
 find them), so the module imports neither jax nor the JAX package at the
@@ -182,25 +183,86 @@ def test_autoscaler_deltas_equal_jax(case, monkeypatch):
         assert any(d.get("a") for d in got), got
 
 
-def test_ttft_trigger_refused_before_any_spawn(serve_instance, monkeypatch):
-    """A scaling_policy with ttft_p99_high_s > 0 needs the metrics plane:
-    serve.run raises, naming the trace/metrics slice, before any spawn."""
-    from ray_tpu_torch.serve.disagg import build_disagg_llm_deployment
-    from ray_tpu_torch.util import procs
+def _ttft_signals(case):
+    """(now, signals) ticks with a TTFT p99 beside quiet queue and
+    occupancy: rising, a spike, flat above the bound, absent."""
+    ticks, now = [], 0.0
+    for i in range(24):
+        now += 0.7 if i % 3 else 1.1
+        a = {"queue_depth": 0.2, "occupancy": 0.4}
+        if case == "rising":
+            a["ttft_p99_s"] = 0.1 * i
+        elif case == "spike":
+            a["ttft_p99_s"] = 5.0 if 6 <= i <= 7 else 0.2
+        elif case == "sustained":
+            a["ttft_p99_s"] = 3.0
+        b = {"queue_depth": 0.0, "occupancy": 0.1, "ttft_p99_s": 0.05 * i}
+        ticks.append((now, {"a": a, "b": b}))
+    return ticks
 
-    def no_spawn(*args, **kwargs):
-        raise AssertionError("a replica was spawned")
 
-    monkeypatch.setattr(procs, "Worker", no_spawn)
-    dep = Scaly.options(name="ttft",
-                        scaling_policy={"ttft_p99_high_s": 1.0})
-    with pytest.raises(NotImplementedError, match="trace/metrics slice"):
-        serve.run(dep.bind())
-    app = build_disagg_llm_deployment(
-        base.port_cfg(), base.NpzParams("unused.npz"), num_gpus=0,
-        decode_scaling_policy={"ttft_p99_high_s": 2.0})
-    with pytest.raises(NotImplementedError, match="trace/metrics slice"):
-        serve.run(app)
+@pytest.mark.parametrize("case", ["rising", "spike", "sustained",
+                                  "absent"])
+def test_autoscaler_ttft_deltas_equal_jax(case):
+    """The TTFT trigger: the port's ServeAutoscaler and the JAX
+    package's, fed the same TTFT p99 signals at the same ``now``, give
+    identical deltas (a policy without the trigger ignores the signal)."""
+    from ray_tpu.serve.autoscaler import ServeAutoscaler as JaxAutoscaler
+
+    from ray_tpu_torch.serve.autoscaler import ServeAutoscaler
+
+    pa = {"min_replicas": 1, "max_replicas": 4, "ttft_p99_high_s": 1.0,
+          "queue_depth_high": 100.0, "occupancy_high": 2.0,
+          "up_for_s": 2.0, "down_for_s": 30.0, "cooldown_s": 0.0}
+    pb = {"up_for_s": 1.0, "down_for_s": 60.0}
+    port, ref = ServeAutoscaler(), JaxAutoscaler()
+    for a in (port, ref):
+        a.configure("a", pa)
+        a.configure("b", pb)
+    got = [port.step(now, sig) for now, sig in _ttft_signals(case)]
+    want = [ref.step(now, sig) for now, sig in _ttft_signals(case)]
+    assert got == want
+    ups = [d for d in got if d.get("a") == 1]
+    assert bool(ups) == (case in ("rising", "sustained")), got
+    assert not any(d.get("b") for d in got)
+
+
+TTFT_POLICY = {"min_replicas": 1, "max_replicas": 2,
+               "ttft_p99_high_s": 0.001, "queue_depth_high": 1e9,
+               "occupancy_high": 2.0, "up_for_s": 1.0, "down_for_s": 600.0,
+               "cooldown_s": 0.0}
+
+
+def test_ttft_trigger_scales_on_real_histograms(serve_instance, tmp_path):
+    """A deployment whose only trigger is ``ttft_p99_high_s`` reaches
+    target 2 from the TTFT histograms its replica's engine records: the
+    replica ships them to the controller's sink, the sink's TSDB gives
+    the p99 the signal plane reads."""
+    from ray_tpu_torch.serve.llm import build_streaming_llm_deployment
+
+    jref = base.JaxReference(tmp_path)
+    name = "ttft-llm"
+    dep = build_streaming_llm_deployment(
+        base.port_cfg(), jref.factory, name=name, max_prompt_len=16,
+        max_new_tokens=4, continuous_batching=True, num_slots=2,
+        num_gpus=0).options(scaling_policy=TTFT_POLICY)
+    handle = serve.run(dep.bind(), route_prefix="/ttft")
+    try:
+        def stats():
+            return controller._local.get_serve_stats()[name]
+
+        deadline = time.time() + 40
+        while time.time() < deadline and stats()["target"] < 2:
+            toks = [c["token"] for c in handle.options(stream=True).remote(
+                {"tokens": [5, 9, 2]})]
+            assert toks == jref.tokens([5, 9, 2], 4)
+            time.sleep(0.2)
+        st = stats()
+        assert st["target"] == 2, st
+        assert st["ttft_p99_s"] >= TTFT_POLICY["ttft_p99_high_s"], st
+        assert st["queue_depth"] < 1 and st["occupancy"] < 2
+    finally:
+        serve.delete(name)
 
 
 def test_disagg_builder_passes_pool_policies():

@@ -4,8 +4,8 @@
 Run from the repo root on a machine with a card: ``python3
 tools/serve_phases.py``. It builds the kernels, runs chip_smoke's
 ``slice`` (the in-process engine on card 0: the witness, and the tick
-time) and ``prefill_time``, then ``serve_stream`` (with ``serve_http``
-and ``serve_grpc`` on its replica), ``serve_batch``, ``serve_disagg``,
+time) and ``prefill_time``, then ``serve_stream`` (with ``serve_http``,
+``serve_grpc`` and ``serve_trace`` on its replica), ``serve_batch``, ``serve_disagg``,
 ``serve_multiplex`` and ``serve_autoscale`` (Llama-3-8B in bf16 on
 replica processes, one card a replica; ``serve_disagg`` needs two cards
 or more, ``serve_autoscale`` drains a second replica only with two),
@@ -68,7 +68,7 @@ def main() -> int:
     prefill_ms = chip_smoke.phase_prefill_time(cfg, params, prompts, device)
     try:
         launches = chip_smoke.phase_serve_stream(cfg, prompts, outs, tick_s,
-                                                 prefill_ms)
+                                                 prefill_ms, eng)
         launches += chip_smoke.phase_serve_batch(cfg, params, device)
         launches += two_cards(chip_smoke.phase_serve_disagg, DISAGG_ONE_CARD,
                               cfg, prompts, outs, prefill_ms)
