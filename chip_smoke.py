@@ -222,7 +222,34 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    leaf sums the workers'; and no worker process left. Prints each fit's
    wall and spawn seconds, the worker's step ms beside the direct step's
    and the witness's, tokens/s a card and peak memory a rank.
-11. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+11. ``data_ingest``: BASELINE config 2's GPT-2 125M (train_glue's recipe,
+   full width, f32 params, bf16 compute, 8 x 512 positions a card) trained
+   through ``TorchTrainer`` from the data layer (``ray_tpu_torch.data``),
+   one worker a visible card up to 4 (W). 24 x 8 rows a card, each an
+   ``id`` and 513 int64 tokens from ``default_rng(SEED)`` over 50257, go
+   through ``write_tfrecords`` as 16 shards; the pipeline is
+   ``read_tfrecords(dir).random_shuffle(seed=SEED)``. One ``fit()`` with
+   ``datasets={"train": shuffled, "splits": shuffled.streaming_split(W)}``
+   (a list has no ``split_shard``, so every rank gets it whole and takes
+   its own): 12 steps from ``get_dataset_shard("train")
+   .iter_torch_batches(batch_size=8)``, then 12 from the rank's split,
+   which the rank then reads to its end. Each rank's 8 rows are its shard
+   of the data=W batch (``DTensor.from_local``). Checks: the shards read
+   back are the rows written; each rank's first arm took, in order, the
+   first 96 ids of the driver's ``shuffled.materialize().split_shard(rank,
+   W)``; the splits delivered every id once across the ranks; every loss
+   finite, the first within 0.5 of ln 50257; on one card the 24 losses bit
+   for bit those of the bare one-device step fed the same batches in the
+   same order, on more within GLUE_LOSS_RTOL of the bare data=W step fed
+   each rank's batches; K1/K2/K3 576/288/288 launches a rank; in the
+   driver ``sort("id")`` gives 0..N-1, ``groupby("shard").count()`` the
+   rows a shard as numpy counts them, and ``zip`` of the ids with
+   themselves ``id`` and ``id_1``; and after the fit no worker process,
+   coordinator thread, socket or spilled file left. Prints the write's
+   MB/s, the read's and the shuffle's wall and rows/s (``stats()``), each
+   arm's step and batch wait (ms), tokens/s a card beside
+   ``train_glue``'s, and a split's block fetch (ms).
+12. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: on contiguous copies, each backend that takes them pinned
@@ -407,6 +434,12 @@ OFFPOLICY_UPDATE_REL_L2 = 1e-4
 GLUE_MNIST_WORKERS, GLUE_MAX_WORKERS = 2, 4
 GLUE_BATCH, GLUE_SEQ, GLUE_WARM_STEPS, GLUE_TIMED_STEPS = 8, 512, 2, 10
 GLUE_LOSS_RTOL, GLUE_HELD_STEPS = 1e-3, 5
+# data_ingest: train_glue's GPT-2 125M recipe fed by the data layer.
+# INGEST_BATCHES x GLUE_BATCH rows a card (GLUE_SEQ + 1 tokens a row, so
+# the model sees GLUE_SEQ positions as in train_glue), written as
+# INGEST_SHARDS TFRecord files; INGEST_STEPS steps from the shard of
+# get_dataset_shard, then INGEST_STEPS from the rank's streaming split.
+INGEST_BATCHES, INGEST_SHARDS, INGEST_STEPS = 24, 16, 12
 SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
 SP_REL_L2 = 2e-2
 # moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
@@ -5024,13 +5057,366 @@ def phase_train_glue(device):
                                            for r in ranks]})
         if failures:
             raise AssertionError("; ".join(failures))
-        return {k: sum(r["launches"][k] for r in ranks) for k in want}
+        return ({k: sum(r["launches"][k] for r in ranks) for k in want},
+                tokens_per_card / step_s)
     finally:
         if tmpdir is None:
             os.environ.pop("TMPDIR")
         else:
             os.environ["TMPDIR"] = tmpdir
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------ data_ingest
+
+def _ingest_arm(ts, params, opt, batches, steps, rows, device, arm):
+    """``steps`` steps of the loop on the rank's local rows, each batch's
+    ``tokens`` made this rank's shard of the data=W batch with
+    ``DTensor.from_local``; each loss goes to the trainer by
+    ``train.report``. Returns the ids, the batch waits and the steps."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+
+    ids, wait_s, step_s = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        local = torch.as_tensor(batch["tokens"]).to(device)
+        tokens = DTensor.from_local(local, rows.mesh, rows.placements)
+        params, opt, loss = ts.step(params, opt, {"tokens": tokens})
+        loss = float(loss)
+        step_s.append(time.perf_counter() - t1)
+        wait_s.append(t1 - t0)
+        ids.extend(int(x) for x in batch["id"])
+        train.report({"loss": loss, "arm": arm, "step": i})
+    return ids, wait_s, step_s
+
+
+def ingest_train_loop(config):
+    """data_ingest's loop, one worker a card: train_glue's GPT-2 step
+    (``transformer_train_step(cfg, get_mesh(), rules=RULES_DP)``) fed by
+    the data layer. Arm 1 takes ``steps`` batches of the rank's
+    ``get_dataset_shard("train")`` through ``iter_torch_batches``; arm 2
+    ``steps`` batches of the rank's streaming split, which it then reads
+    to its end. Rank 0 reports every rank's ids, times, fetches and
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import RULES_DP
+    from ray_tpu_torch.parallel.sharding import named_sharding
+
+    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    mesh = train.get_mesh()
+    ts = train.transformer_train_step(cfg, mesh, rules=RULES_DP,
+                                      shift_inputs=True)
+    device = ts.device
+    torch.cuda.reset_peak_memory_stats(device)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(
+        config["seed"]))
+    rank = train.get_context().get_world_rank()
+    shard = train.get_dataset_shard("train")
+    split = train.get_dataset_shard("splits")[rank]
+    rows = named_sharding(mesh, ("batch", None), RULES_DP)
+    _zero_launch_counts(fa)  # this rank's main path alone
+    steps, bs = config["steps"], config["batch"]
+    arm1 = _ingest_arm(ts, params, opt, shard.iter_torch_batches(
+        batch_size=bs), steps, rows, device, "shard")
+    split_batches = split.iter_batches(batch_size=bs)
+    arm2 = _ingest_arm(ts, params, opt, split_batches, steps, rows, device,
+                       "split")
+    drained = [int(x) for b in split_batches for x in b["id"]]
+    mine = {"launches": _launch_counts(fa),
+            "arm1": {"ids": arm1[0], "wait_s": arm1[1], "step_s": arm1[2]},
+            "arm2": {"ids": arm2[0], "wait_s": arm2[1], "step_s": arm2[2],
+                     "drained": drained},
+            "fetch_s": split.fetch_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    train.report({"ranks": ranks})
+
+
+def _direct_gpt2_batches(cfg, batches, device):
+    """The bare one-device step (``_direct_gpt2``'s) on ``batches`` in
+    order, one step a batch; the losses."""
+    import torch
+
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    ts = transformer_train_step(cfg, device=device, shift_inputs=True)
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(SEED))
+    losses = []
+    for b in batches:
+        params, opt, loss = ts.step(params, opt, {
+            "tokens": torch.from_numpy(b).to(device)})
+        losses.append(float(loss))
+    return losses
+
+
+def _ingest_dp_steps(rank, world, device_type, batches_by_rank):
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.parallel import RULES_DP, MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.sharding import named_sharding
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    ts = transformer_train_step(
+        cfg, make_mesh(MeshSpec(data=world), device_type), rules=RULES_DP,
+        shift_inputs=True)
+    params, opt = ts.init(torch.Generator(device=ts.device).manual_seed(SEED))
+    rows = named_sharding(ts.mesh, ("batch", None), RULES_DP)
+    losses = []
+    for b in batches_by_rank[rank]:
+        local = torch.from_numpy(b).to(ts.device)
+        params, opt, loss = ts.step(params, opt, {"tokens": DTensor.from_local(
+            local, rows.mesh, rows.placements)})
+        losses.append(float(loss))
+    return {"rank": rank, "losses": losses}
+
+
+def ingest_dp_rank(rank, world, addr, device_type, batches_by_rank,
+                   results=None):
+    """One rank of data_ingest's witness on more cards: the bare data=W
+    step fed each rank's batches in order, no Train layer or data
+    layer."""
+    return _in_world(rank, world, addr, device_type, results,
+                     lambda: _ingest_dp_steps(rank, world, device_type,
+                                              batches_by_rank))
+
+
+def _ms_summary(seconds):
+    ms = [x * 1e3 for x in seconds]
+    return {"median": statistics.median(ms), "mean": statistics.mean(ms),
+            "max": max(ms), "n": len(ms)} if ms else None
+
+
+def _driver_exchanges(td, path, n, failures):
+    """The exchanges of data_ingest in the driver, on the written shards:
+    ``sort("id")``, ``groupby("shard").count()`` against numpy, ``zip``
+    of the ids with themselves. Returns each one's wall seconds."""
+    import numpy as np
+
+    per_shard = n // INGEST_SHARDS
+    walls = {}
+    t = time.perf_counter()
+    got = np.concatenate([b["id"] for b in td.read_tfrecords(path)
+                          .sort("id").iter_batches(batch_size=None)])
+    walls["sort_s"] = time.perf_counter() - t
+    if not np.array_equal(got, np.arange(n)):
+        failures.append("sort('id') is not 0..N-1")
+    t = time.perf_counter()
+    counts = td.read_tfrecords(path).add_column(
+        "shard", lambda b: b["id"] // per_shard).groupby("shard").count() \
+        .take_all()
+    walls["groupby_s"] = time.perf_counter() - t
+    want = np.bincount(np.arange(n) // per_shard)
+    got = {int(r["shard"]): int(r["count()"]) for r in counts}
+    if got != {i: int(c) for i, c in enumerate(want)}:
+        failures.append(f"groupby('shard').count(): {got}, numpy {want}")
+    t = time.perf_counter()
+    ids = td.read_tfrecords(path).select_columns(["id"])
+    zipped = ids.zip(ids).take_batch(n)
+    walls["zip_s"] = time.perf_counter() - t
+    if sorted(zipped) != ["id", "id_1"] or not np.array_equal(
+            zipped["id"], zipped["id_1"]) or len(zipped["id"]) != n:
+        failures.append(f"zip of the ids: columns {sorted(zipped)}")
+    return walls
+
+
+def phase_data_ingest(device, glue_tokens_per_s):
+    """GPT-2 125M trained through ``TorchTrainer`` on a shuffled TFRecord
+    dataset, fed by ``split_shard`` and by a ``streaming_split`` (see
+    ``ingest_train_loop``), one worker a visible card up to 4."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch.data as td
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig,
+                                     TorchTrainer, TrainCallback)
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rtpu_data_ingest_")
+    tmpdir = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = root  # the workers' temporary files go too
+    failures = []
+    try:
+        world = min(torch.cuda.device_count(), GLUE_MAX_WORKERS)
+        cfg = gpt2_125m(remat=True, remat_policy="dots")
+        n = world * INGEST_BATCHES * GLUE_BATCH
+        tokens_np = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (n, GLUE_SEQ + 1))
+        path = os.path.join(root, "shards")
+        t = time.perf_counter()
+        td.from_blocks([{"id": idx, "tokens": tokens_np[idx]} for idx in
+                        np.array_split(np.arange(n), INGEST_SHARDS)]
+                       ).write_tfrecords(path)
+        write_s = time.perf_counter() - t
+        written = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+
+        shuffled = td.read_tfrecords(path).random_shuffle(seed=SEED)
+        materialized = shuffled.materialize()
+        ops = {o["operator"]: o for o in shuffled.stats().operators}
+        read_s = ops["read"]["wall_s"]
+        shuffle_s = ops["RandomShuffle"]["self_s"]
+        seen = materialized.take_batch(n)
+        if not (np.array_equal(np.sort(seen["id"]), np.arange(n))
+                and np.array_equal(seen["tokens"], tokens_np[seen["id"]])
+                and seen["tokens"].dtype == np.int64):
+            failures.append("the shards read back differ from the rows "
+                            "written")
+        exchanges = _driver_exchanges(td, path, n, failures)
+
+        splits = shuffled.streaming_split(world)
+        coord = shuffled._coordinators[0]
+        coord_dir, coord_socket = coord._listener.dir, coord.address
+
+        class Record(TrainCallback):
+            def __init__(self):
+                self.reports = []
+
+            def on_report(self, iteration, metrics, checkpoint=None):
+                self.reports.append(metrics)
+
+        rec = Record()
+        trainer = TorchTrainer(
+            ingest_train_loop,
+            train_loop_config={"seed": SEED, "steps": INGEST_STEPS,
+                               "batch": GLUE_BATCH},
+            scaling_config=ScalingConfig(num_workers=world),
+            run_config=RunConfig(name="gpt2_ingest", storage_path=root,
+                                 callbacks=[rec]),
+            datasets={"train": shuffled, "splits": splits})
+        result, fit_s = _fit_glue(trainer)
+        spawn_s = result.spawn_s
+        ranks = rec.reports[-1]["ranks"]
+        losses = [r["loss"] for r in rec.reports if "loss" in r]
+        _no_workers_left(failures, "the ingest run")
+
+        steps = 2 * INGEST_STEPS
+        rows_a_step = INGEST_STEPS * GLUE_BATCH
+        for r, got in enumerate(ranks):
+            want = np.concatenate([b["id"] for b in materialized.split_shard(
+                r, world).iter_batches(batch_size=None)]).tolist()
+            if got["arm1"]["ids"] != want[:rows_a_step]:
+                failures.append(f"rank {r}: arm 1's ids are not the "
+                                f"driver's split_shard({r}, {world})")
+            if len(got["arm2"]["ids"]) != rows_a_step:
+                failures.append(f"rank {r}: arm 2 trained on "
+                                f"{len(got['arm2']['ids'])} rows")
+        delivered = sorted(i for got in ranks for i in
+                           got["arm2"]["ids"] + got["arm2"]["drained"])
+        if delivered != list(range(n)):
+            failures.append(f"the splits delivered {len(delivered)} ids, "
+                            f"{len(set(delivered))} distinct, of {n}")
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            failures.append(f"losses: {losses}")
+        elif abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            failures.append(f"first loss {losses[0]} is not within 0.5 of "
+                            f"ln({cfg.vocab_size})")
+        # The witness: the same batches in the same order, with no Train
+        # layer and no data layer.
+        batches_by_rank = [
+            [tokens_np[got[arm]["ids"][i * GLUE_BATCH:(i + 1) * GLUE_BATCH]]
+             for arm in ("arm1", "arm2") for i in range(INGEST_STEPS)]
+            for got in ranks]
+        del materialized, seen
+        gc_collect()
+        if world == 1:
+            witness = _direct_gpt2_batches(cfg, batches_by_rank[0], device)
+            rtol = 0.0
+        else:
+            witness = run_dist_ranks(world, "cuda", batches_by_rank,
+                                     rank_fn=ingest_dp_rank)[0]["losses"]
+            rtol = GLUE_LOSS_RTOL
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, witness)]
+        if len(rel) != steps or max(rel) > rtol:
+            failures.append(f"losses {losses} against the bare step's "
+                            f"{witness}: relative {rel}, held to {rtol}")
+        want_launches = {"flash_fwd": 2 * cfg.n_layers * steps,
+                         "flash_bwd_dq": cfg.n_layers * steps,
+                         "flash_bwd_dkv": cfg.n_layers * steps}
+        for r, got in enumerate(ranks):
+            if got["launches"] != want_launches:
+                failures.append(f"rank {r} launches {got['launches']}, "
+                                f"expected {want_launches}")
+
+        # Clean-up: the coordinator goes when every split has ended and
+        # its consumers have left, or with the Dataset and its iterators.
+        del trainer, splits, shuffled, coord, result
+        gc.collect()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and (
+                os.path.exists(coord_dir) or _split_threads()):
+            time.sleep(0.1)
+        if _split_threads() or os.path.exists(coord_dir) or \
+                os.path.exists(coord_socket):
+            failures.append(f"the split coordinator left threads "
+                            f"{_split_threads()} or files in {coord_dir}")
+
+        def arm_ms(arm, key):
+            # The first step of an arm pays its iterator's start: kept in
+            # "max", left out of the median.
+            return _ms_summary([x for got in ranks
+                                for x in got[arm][key][1:]])
+
+        fetch = [x for got in ranks for x in got["fetch_s"]]
+        step_ms = {arm: arm_ms(arm, "step_s") for arm in ("arm1", "arm2")}
+        tokens_per_card = GLUE_BATCH * GLUE_SEQ
+        emit("data_ingest", ok=not failures, failures=failures,
+             phase_s=time.perf_counter() - phase_t0,
+             model="gpt2_125m", workers=world, backend="nccl",
+             rows=n, tokens_a_row=GLUE_SEQ + 1, shards=INGEST_SHARDS,
+             batch_per_card=GLUE_BATCH, steps_per_arm=INGEST_STEPS,
+             write_s=write_s, written_mb=written / 1e6,
+             write_mb_per_s=written / 1e6 / write_s,
+             read_s=read_s, read_rows_per_s=n / read_s,
+             shuffle_s=shuffle_s, shuffle_rows_per_s=n / shuffle_s,
+             exchanges=exchanges, fit_s=fit_s, spawn_s=spawn_s,
+             losses=losses, witness_losses=witness, loss_rel_diff=rel,
+             loss_rtol=rtol,
+             launches_by_rank=[got["launches"] for got in ranks],
+             step_ms=step_ms,
+             wait_ms={arm: arm_ms(arm, "wait_s")
+                      for arm in ("arm1", "arm2")},
+             tokens_per_s_per_card={
+                 arm: tokens_per_card / (step_ms[arm]["median"] / 1e3)
+                 for arm in step_ms},
+             train_glue_tokens_per_s_per_card=glue_tokens_per_s,
+             split_fetch_ms=_ms_summary(fetch),
+             drained_rows=[len(got["arm2"]["drained"]) for got in ranks],
+             peak_mem_gib_per_rank=[got["peak_mem_gib"] for got in ranks])
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return {k: sum(got["launches"][k] for got in ranks)
+                for k in want_launches}
+    finally:
+        if tmpdir is None:
+            os.environ.pop("TMPDIR")
+        else:
+            os.environ["TMPDIR"] = tmpdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _split_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("rtpu-split")]
 
 
 def bwd_flops(B, S, H, D, causal, products):
@@ -5316,7 +5702,9 @@ def main() -> int:
     phase_offline_train(device, sac_columns)
     phase_multi_agent_train(device)
     gc_collect()
-    glue_launches = phase_train_glue(device)
+    glue_launches, glue_tokens_per_s = phase_train_glue(device)
+    gc_collect()
+    ingest_launches = phase_data_ingest(device, glue_tokens_per_s)
     gc_collect()
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 
@@ -5329,7 +5717,8 @@ def main() -> int:
                      + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
-                     + data_launches + glue_launches["flash_fwd"]),
+                     + data_launches + glue_launches["flash_fwd"]
+                     + ingest_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deploy": serve_deploy,
                              "train": train_launches["flash_fwd"],
@@ -5338,7 +5727,8 @@ def main() -> int:
                              "dist_train": dist_launches["flash_fwd"],
                              "vit": vit_launches,
                              "data_infer": data_launches,
-                             "train_glue": glue_launches["flash_fwd"]},
+                             "train_glue": glue_launches["flash_fwd"],
+                             "data_ingest": ingest_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
         "device_ms": fwd_timed["device_ms"],
@@ -5357,11 +5747,13 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + moe_launches[name]
-                         + dist_launches[name] + glue_launches[name]),
+                         + dist_launches[name] + glue_launches[name]
+                         + ingest_launches[name]),
             "launches_by_path": {"train": train_launches[name],
                                  "moe_train": moe_launches[name],
                                  "dist_train": dist_launches[name],
-                                 "train_glue": glue_launches[name]},
+                                 "train_glue": glue_launches[name],
+                                 "data_ingest": ingest_launches[name]},
             "max_abs_err": err,
             "ms": timed["ms"],
             "device_ms": timed["device_ms"],

@@ -7,8 +7,7 @@ Left out: the object-store pressure fields (``memory_high_water``,
 calling process and there is no store to read the pressure of; the
 block size targets (``target_max_block_size``,
 ``target_min_block_size``), since no stage of the port splits or
-coalesces blocks by size; and the shuffle fan-out, which goes with the
-shuffle.
+coalesces blocks by size.
 """
 from __future__ import annotations
 
@@ -25,6 +24,8 @@ class DataContext:
     max_tasks_in_flight: int = 8
     preserve_order: bool = True
     default_batch_format: str = "numpy"
+    # Shuffle fan-out (#output partitions defaults to #input blocks).
+    shuffle_partitions: Optional[int] = None
     read_parallelism: int = 8
 
     _lock: ClassVar[threading.Lock] = threading.Lock()

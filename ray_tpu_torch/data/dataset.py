@@ -2,18 +2,20 @@
 
 The port's counterpart of the JAX package's ``data/dataset.py``
 (reference: python/ray/data/dataset.py — map_batches :379, iter_batches
-:3725, materialize :4605). A Dataset is a logical-op chain that the
-StreamingExecutor runs on demand; its blocks are numpy dicts of the
-calling process. A class UDF given to ``map_batches`` runs on a pool of
-spawned worker processes, one card each with ``num_gpus=1`` (the
-reference's ``num_tpus``), and ``iter_device_batches`` feeds a card in
-this process through pinned buffers and a side stream.
-
-Not ported yet (ROADMAP queue A): ``random_shuffle``, ``sort``,
-``groupby``, ``zip``, ``streaming_split`` and the writes.
+:3725, streaming_split :1222, materialize :4605). A Dataset is a
+logical-op chain that the StreamingExecutor runs on demand; its blocks
+are numpy dicts of the calling process. A class UDF given to
+``map_batches`` runs on a pool of spawned worker processes, one card each
+with ``num_gpus=1`` (the reference's ``num_tpus``), and
+``iter_device_batches`` feeds a card in this process through pinned
+buffers and a side stream. ``streaming_split`` hands the blocks to
+consumers in this or other processes through a coordinator thread
+(``iterator.SplitCoordinator``); the writes run a block a task on this
+process's threads.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -21,6 +23,7 @@ import numpy as np
 from . import logical as L
 from .block import Block, BlockAccessor, concat_blocks
 from .context import DataContext
+from .datasource import need, write_block
 from .executor import StreamingExecutor, _pool_bounds, _pool_cards, pool_payload
 
 
@@ -107,6 +110,17 @@ class Dataset:
         self._ops = ops
         self._ctx = ctx or DataContext.get_current()
         self._last_run: Optional[StreamingExecutor] = None
+        # The coordinators of this Dataset's streaming splits: each goes
+        # away with the last of this Dataset and its split iterators here.
+        self._coordinators: List[Any] = []
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # A Dataset sent to a worker process carries its plan, not this
+        # process's run or coordinators.
+        return {"_ops": self._ops, "_ctx": self._ctx}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state, _last_run=None, _coordinators=[])
 
     # ------------------------------------------------------------- transforms
 
@@ -188,11 +202,33 @@ class Dataset:
     def repartition(self, num_blocks: int) -> "Dataset":
         return self._append(L.Repartition(num_blocks))
 
+    def random_shuffle(self, *, seed: Optional[int] = None) -> "Dataset":
+        return self._append(L.RandomShuffle(seed))
+
+    def randomize_block_order(self, *, seed: Optional[int] = None) -> "Dataset":
+        """Shuffle at block granularity only: a cheap epoch-level
+        reshuffle (reference: dataset.randomize_block_order)."""
+        blocks = self._blocks()
+        order = np.random.default_rng(seed).permutation(len(blocks))
+        return Dataset([L.InputData(refs=[blocks[i] for i in order])],
+                       self._ctx)
+
+    def sort(self, key: str, descending: bool = False) -> "Dataset":
+        return self._append(L.Sort(key, descending))
+
     def limit(self, n: int) -> "Dataset":
         return self._append(L.Limit(n))
 
     def union(self, *others: "Dataset") -> "Dataset":
         return self._append(L.Union([o._ops for o in others]))
+
+    def zip(self, other: "Dataset") -> "Dataset":
+        return self._append(L.Zip(other._ops))
+
+    def groupby(self, key: Optional[str]) -> "Any":
+        from .grouped import GroupedData
+
+        return GroupedData(self, key)
 
     # ------------------------------------------------------------ consumption
 
@@ -202,6 +238,11 @@ class Dataset:
 
     def _blocks(self) -> List[Block]:
         return list(self._execute())
+
+    def to_block_refs(self) -> List[Block]:
+        """The blocks (the JAX package's object refs; here the calling
+        process's arrays)."""
+        return self._blocks()
 
     def materialize(self) -> "Dataset":
         """Execute fully; the result holds the blocks (reference:
@@ -247,6 +288,10 @@ class Dataset:
         merged = BlockAccessor(concat_blocks(blocks))
         return BlockAccessor(merged.slice(0, min(batch_size, merged.num_rows()))).to_batch(batch_format)
 
+    def show(self, n: int = 20) -> None:
+        for row in self.take(n):
+            print(row)
+
     def iter_rows(self) -> Iterator[Dict[str, Any]]:
         for block in self._execute():
             yield from BlockAccessor(block).iter_rows()
@@ -276,23 +321,12 @@ class Dataset:
         buffers on a side stream up to ``prefetch`` batches ahead of the
         consumer (see ``iterator.device_batch_stream``): the reference's
         ``iter_torch_batches`` with ``prefetch_batches``."""
-        import torch
+        from .iterator import _device_batches
 
-        from ..device import resolve_device
-        from .iterator import device_batch_stream
-
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; iter_torch_batches "
-                               "gives CPU tensors")
-        dev = resolve_device(device)
-        if dev.type != "cuda":
-            raise ValueError(f"device {dev}: iter_device_batches feeds a "
-                             "CUDA card; iter_torch_batches gives CPU "
-                             "tensors")
-        return device_batch_stream(
+        return _device_batches(
             self.iter_batches(batch_size=batch_size, batch_format="numpy",
                               drop_last=drop_last),
-            dev, prefetch)
+            device, prefetch)
 
     def iter_torch_batches(self, *, batch_size: int = 256,
                            dtypes=None, device: str = "cpu",
@@ -323,6 +357,14 @@ class Dataset:
 
         return gen()
 
+    def to_pandas(self):
+        pd = need("pandas", "to_pandas")
+        dfs = [BlockAccessor(b).to_pandas() for b in self._execute()]
+        return pd.concat(dfs, ignore_index=True) if dfs else pd.DataFrame()
+
+    def to_numpy_refs(self) -> List[Block]:
+        return self.to_block_refs()
+
     # ------------------------------------------------------------------ split
 
     def split(self, n: int) -> List["Dataset"]:
@@ -335,8 +377,100 @@ class Dataset:
 
     def split_shard(self, rank: int, world_size: int) -> "Dataset":
         """Deterministic round-robin block shard for data-parallel ingest
-        (the path behind get_dataset_shard)."""
+        (the path behind get_dataset_shard; streaming_split is the
+        coordinated variant)."""
         return self.split(world_size)[rank]
+
+    def streaming_split(self, n: int, *, equal: bool = False,
+                        locality_hints: Optional[List[str]] = None,
+                        resume_key: Optional[str] = None) -> List[Any]:
+        """reference: dataset.py:1222 — ``n`` coordinated iterators fed on
+        demand from one run of this pipeline by a coordinator thread of
+        this process (``iterator.SplitCoordinator``): the first epoch
+        first come, first served, later epochs its blocks again
+        round-robin. A ``SplitIterator`` pickles, so a Train worker or
+        another process can consume it (its blocks then arrive as files).
+
+        With ``resume_key`` the handout goes to a journal and each split's
+        position to a cursor (``core/checkpoint.py``): a coordinator made
+        again with the same key (a restarted driver) replays the journal,
+        and an iterator that lost its coordinator finds the new one and
+        resumes where its split stood. The handout is the reference's
+        ``equal=False``: ``equal=True`` and ``locality_hints`` raise
+        NotImplementedError (ROADMAP A3), since a rank given fewer
+        batches than its peers would leave them waiting in a
+        collective."""
+        from .iterator import split_iterators
+
+        if equal or locality_hints is not None:
+            raise NotImplementedError(
+                "streaming_split(equal=True) and locality_hints are not "
+                "ported (ROADMAP A3): the splits are handed out first "
+                "come, first served, in unequal counts")
+        coord, its = split_iterators(self._ops, self._ctx, n, resume_key)
+        self._coordinators.append(coord)
+        return its
+
+    def iterator(self, *, resume_key: Optional[str] = None) -> Any:
+        """A DataIterator over this dataset; with ``resume_key`` its batch
+        iteration journals a cursor for mid-epoch resume (reference:
+        Dataset.iterator -> DataIterator)."""
+        from .iterator import DataIterator
+
+        return DataIterator(self, resume_key=resume_key)
+
+    # ------------------------------------------------------------------ write
+
+    def write_parquet(self, path: str, **kwargs) -> None:
+        self._write(path, "parquet", **kwargs)
+
+    def write_csv(self, path: str, **kwargs) -> None:
+        self._write(path, "csv", **kwargs)
+
+    def write_json(self, path: str, **kwargs) -> None:
+        self._write(path, "json", **kwargs)
+
+    def write_tfrecords(self, path: str, **kwargs) -> None:
+        """tf.train.Example shards, one a block (dependency-free writer,
+        data/tfrecord_lite.py; reference dataset.write_tfrecords)."""
+        self._write(path, "tfrecord", **kwargs)
+
+    def write_webdataset(self, path: str, **kwargs) -> None:
+        """WebDataset tar shards, one a block (reference
+        dataset.write_webdataset); rows keyed by "__key__" when present."""
+        self._write(path, "tar", **kwargs)
+
+    def write_sql(self, sql: str, connection_factory) -> None:
+        """INSERT every row through a DB-API connection a block (reference
+        dataset.write_sql): ``sql`` is a parameterized statement, e.g.
+        ``INSERT INTO t VALUES(?, ?)``; the zero-arg
+        ``connection_factory`` opens each block's connection. The blocks
+        are written one after another (sqlite takes one writer)."""
+
+        def native(v):
+            # DB-API drivers store numpy scalars as blobs; unwrap them.
+            return v.item() if hasattr(v, "item") else v
+
+        for block in self._execute():
+            conn = connection_factory()
+            try:
+                cur = conn.cursor()
+                cur.executemany(sql, [tuple(native(v) for v in r.values())
+                                      for r in BlockAccessor(block).iter_rows()])
+                conn.commit()
+            finally:
+                conn.close()
+
+    def _write(self, path: str, fmt: str, **kwargs) -> None:
+        """One file a block, written on this process's threads as the
+        blocks stream in."""
+        workers = max(1, self._ctx.max_tasks_in_flight)
+        with cf.ThreadPoolExecutor(workers,
+                                   thread_name_prefix="rtpu-data") as pool:
+            futs = [pool.submit(write_block, b, path, fmt, i, **kwargs)
+                    for i, b in enumerate(self._execute())]
+            for f in futs:
+                f.result()
 
     # ------------------------------------------------------------------ stats
 

@@ -34,8 +34,28 @@ design):
   it is replaced on the same card and its in-flight blocks are sent to
   the replacement, at most ``RTPU_DATA_FT_RETRIES`` times a block;
   without the flag the stage raises :class:`PoolWorkerDiedError`.
-  Drain and preemption migration, and the re-derivation of lost
-  all-to-all shards, need a control plane and are not ported.
+  Drain and preemption migration need a control plane and are not
+  ported.
+- The all-to-all exchanges (repartition, random shuffle, sort, zip,
+  aggregate) run their partition and reduce steps on the stage's thread
+  pool, over the driver's blocks, and give the JAX package's blocks for
+  the same seed. The JAX package records each shard's producing call to
+  re-derive a shard lost with its node (``_derivable``, ``_register``,
+  ``ft_get``); the port's shards are arrays of the calling process, which
+  no node loss can take, so there is no lineage to keep.
+- ``_aggregate`` computes in numpy (the card's machine has no pandas)
+  and gives pandas' groupby answers: ``std`` with ddof 1, ``mean`` in
+  f64, NaN skipped by ``sum``/``mean``/``min``/``max``/``std``, ``count``
+  the group's size, NaN keys dropped, ``min``/``max`` in the column's
+  dtype. Float sums agree with pandas' (Kahan-compensated) to about 1e-15
+  relative, not bit for bit.
+
+The stages export the JAX package's ``rtpu_data_*`` families through
+``util/metrics.py`` (``_export_stat``: one increment a stage record), and
+narrate their progress on stderr under ``RTPU_DATA_PROGRESS``. The JAX
+package's ``rtpu_data_store_pressure`` and
+``rtpu_data_blocks_rederived_total`` have no source here (no object
+store, no lineage).
 """
 from __future__ import annotations
 
@@ -50,16 +70,83 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from .. import flags
 from ..util import procs
+from ..util.metrics import Counter, Gauge
 from . import logical as L
 from .block import (Block, BlockAccessor, block_from_batch, concat_blocks,
                     rows_to_block)
 from .context import DataContext
+
+_retries_total = Counter(
+    "rtpu_data_retries_total",
+    description="Streaming data plane: input batches resubmitted after the "
+                "pool actor running them died, by cause (actor_died / "
+                "worker_crashed / preempted). Preempted resubmissions do "
+                "not consume the per-batch retry budget.",
+    tag_keys=("cause",))
+_inflight_gauge = Gauge(
+    "rtpu_data_inflight_blocks",
+    description="Streaming data plane: blocks currently in flight in one "
+                "executing stage, labeled by stage.",
+    tag_keys=("stage",))
+
+# Per-operator execution accounting (reference: _StatsActor +
+# OpRuntimeMetrics), the JAX package's names and tags: the executor is
+# their single producer.
+_op_blocks_total = Counter(
+    "rtpu_data_operator_blocks_total",
+    description="Streaming data plane: output blocks produced per "
+                "operator (stage label, e.g. read / MapBatches / "
+                "ActorPool[Fn] / RandomShuffle).",
+    tag_keys=("operator",))
+_op_rows_total = Counter(
+    "rtpu_data_operator_rows_total",
+    description="Streaming data plane: rows entering (dir=in) and "
+                "leaving (dir=out) each metered operator; `iter` is the "
+                "driver-side batch iterator.",
+    tag_keys=("operator", "dir"))
+_op_bytes_total = Counter(
+    "rtpu_data_operator_bytes_total",
+    description="Streaming data plane: block bytes entering (dir=in) "
+                "and leaving (dir=out) each metered operator — dir=out "
+                "approximates object-store bytes the operator "
+                "materialized.",
+    tag_keys=("operator", "dir"))
+_op_seconds_total = Counter(
+    "rtpu_data_operator_seconds_total",
+    description="Streaming data plane: per-operator time by phase — "
+                "wall (stage elapsed), udf (inside the user function), "
+                "backpressure (driver blocked at the in-flight cap "
+                "waiting for downstream to drain).",
+    tag_keys=("operator", "phase"))
+
+
+class Progress:
+    """A stage's progress lines on stderr under ``RTPU_DATA_PROGRESS``,
+    one every ``RTPU_DATA_PROGRESS_S`` at most. ``tick`` returns at once
+    while the flag is off; ``text`` gets the seconds since the start."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.every = float(flags.get("RTPU_DATA_PROGRESS_S")) \
+            if flags.get("RTPU_DATA_PROGRESS") else 0.0
+        self.t0 = self.last = time.perf_counter()
+
+    def tick(self, text: Callable[[float], str]) -> None:
+        if not self.every:
+            return
+        now = time.perf_counter()
+        if now - self.last >= self.every:
+            self.last = now
+            print(f"[data] {self.label}: {text(max(1e-9, now - self.t0))}",
+                  file=sys.stderr)
+
 
 # The process's running count of blocks resent after their pool worker
 # died (the JAX package's ft_counters()).
@@ -396,6 +483,102 @@ def pool_payload(op: L.MapBatches) -> bytes:
                        "in this process and may be one)")
 
 
+# ------------------------------------------------ aggregation (pandas' rules)
+
+
+def _na_mask(v: np.ndarray) -> np.ndarray:
+    """Where ``v`` holds a missing value, as pandas reads one."""
+    if v.dtype.kind in "fc":
+        return np.isnan(v)
+    if v.dtype.kind == "O":
+        return np.array([x is None or (isinstance(x, float) and x != x)
+                         for x in v], dtype=bool)
+    return np.zeros(len(v), dtype=bool)
+
+
+def _reduce_runs(kind: str, v: np.ndarray,
+                 starts: np.ndarray) -> np.ndarray:
+    """``kind`` over the runs of ``v`` that begin at ``starts`` (each run
+    non-empty) as pandas' groupby computes it: missing values skipped;
+    ``sum`` in the column's float dtype or int64, ``mean``/``std`` (ddof
+    1) in the float dtype or f64, ``min``/``max`` in the column's dtype;
+    a run with no value left is NaN (0 for ``sum``)."""
+    na = _na_mask(v)
+    floaty = v.dtype.kind == "f"
+    real = np.float64 if floaty else None
+    if kind == "sum":
+        if not floaty:
+            return np.add.reduceat(v.astype(np.int64), starts)
+        x = np.where(na, 0.0, v.astype(real))
+        return np.add.reduceat(x, starts).astype(v.dtype)
+    if kind in ("min", "max"):
+        if not na.any():
+            ufunc = np.minimum if kind == "min" else np.maximum
+            return ufunc.reduceat(v, starts)
+        fill = np.inf if kind == "min" else -np.inf
+        ufunc = np.fmin if kind == "min" else np.fmax
+        out = ufunc.reduceat(np.where(na, fill, v), starts)
+        have = np.add.reduceat((~na).astype(np.int64), starts)
+        return np.where(have > 0, out, np.nan).astype(v.dtype)
+    out_dtype = v.dtype if floaty else np.float64
+    x = np.where(na, 0.0, v.astype(np.float64))
+    have = np.add.reduceat((~na).astype(np.int64), starts)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = np.add.reduceat(x, starts) / have
+        if kind == "mean":
+            return mean.astype(out_dtype)
+        if kind != "std":
+            raise ValueError(f"unknown aggregate {kind!r}: count, sum, "
+                             "mean, min, max or std")
+        lengths = np.diff(np.append(starts, len(v)))
+        dev = np.where(na, 0.0, x - np.repeat(mean, lengths))
+        var = np.add.reduceat(dev * dev, starts) / (have - 1)
+        return np.where(have > 1, np.sqrt(var), np.nan).astype(out_dtype)
+
+
+def _global_agg(kind: str, v: np.ndarray) -> Any:
+    """One aggregate over the whole column: the numpy scalar pandas'
+    ``Series`` method gives."""
+    if len(v) == 0:
+        return np.zeros(1, v.dtype)[0] if kind == "sum" else np.nan
+    return _reduce_runs(kind, v, np.zeros(1, dtype=np.int64))[0]
+
+
+def _group_agg(shards: List[Block], key: str,
+               aggs: List[Tuple[str, str, str]]) -> Block:
+    """One partition of a groupby: the key's groups in sorted order (NaN
+    keys dropped), then each aggregate, as pandas'
+    ``groupby(key, sort=True)`` gives them; an empty partition is an
+    empty block."""
+    merged = concat_blocks(shards)
+    n = BlockAccessor(merged).num_rows()
+    cols = BlockAccessor(merged).to_numpy() if n else {}
+    if not cols:
+        return {}
+    k = cols[key]
+    keep = ~_na_mask(k)
+    if not keep.all():
+        cols = {c: v[keep] for c, v in cols.items()}
+        k = cols[key]
+    order = np.argsort(k, kind="stable")
+    ks = k[order]
+    change = np.ones(len(ks), dtype=bool)
+    change[1:] = ks[1:] != ks[:-1]
+    starts = np.flatnonzero(change)
+    groups = ks[starts]
+    if groups.dtype.kind in "US":
+        groups = groups.astype(object)  # pandas' keys are Python objects
+    out: Dict[str, np.ndarray] = {key: groups}
+    sizes = np.diff(np.append(starts, len(ks))).astype(np.int64)
+    for kind, col, out_name in aggs:
+        if kind == "count":
+            out[out_name] = sizes
+        else:
+            out[out_name] = _reduce_runs(kind, np.asarray(cols[col])[order],
+                                         starts)
+    return out
+
+
 # ----------------------------------------------------------------- executor
 
 
@@ -446,14 +629,36 @@ class StreamingExecutor:
                     "Repartition",
                     self._repartition(self._timed(stream, cell),
                                       op.num_blocks), cell)
+            elif isinstance(op, L.RandomShuffle):
+                cell = [0.0]
+                stream = self._observe(
+                    "RandomShuffle",
+                    self._random_shuffle(self._timed(stream, cell),
+                                         op.seed), cell)
+            elif isinstance(op, L.Sort):
+                cell = [0.0]
+                stream = self._observe(
+                    "Sort",
+                    self._sort(self._timed(stream, cell), op.key,
+                               op.descending), cell)
             elif isinstance(op, L.Limit):
                 stream = self._limit(stream, op.n)
             elif isinstance(op, L.Union):
                 stream = self._union(stream, op.others)
+            elif isinstance(op, L.Zip):
+                cell = [0.0]
+                stream = self._observe(
+                    "Zip", self._zip(self._timed(stream, cell), op.other),
+                    cell)
+            elif isinstance(op, L.Aggregate):
+                cell = [0.0]
+                stream = self._observe(
+                    "Aggregate",
+                    self._aggregate(self._timed(stream, cell), op), cell)
             else:
                 raise NotImplementedError(
-                    f"{type(op).__name__} is not ported to the port's data "
-                    "layer yet (ROADMAP queue A)")
+                    f"the executor does not know the logical op "
+                    f"{type(op).__name__}")
         return self._walled(stream)
 
     def _walled(self, stream: Iterator[Block]) -> Iterator[Block]:
@@ -537,6 +742,12 @@ class StreamingExecutor:
         backpressure_s = 0.0
         pending: "collections.deque[cf.Future]" = collections.deque()
         pool = cf.ThreadPoolExecutor(cap, thread_name_prefix="rtpu-data")
+        narrate = Progress(label)
+
+        def progress() -> None:
+            narrate.tick(lambda elapsed: (
+                f"{n} blocks out, {len(pending)} in flight, "
+                f"{elapsed:.0f}s elapsed ({n / elapsed:.1f} blocks/s)"))
 
         def take() -> Any:
             if preserve:
@@ -555,10 +766,12 @@ class StreamingExecutor:
                     out = take()
                     backpressure_s += time.perf_counter() - tw
                     n += 1
+                    progress()
                     yield out
             while pending:
                 out = take()
                 n += 1
+                progress()
                 yield out
         finally:
             # A downstream stage that stops pulling early (Limit) closes
@@ -610,6 +823,35 @@ class StreamingExecutor:
             dist["max"] = max(dist["max"], bb["max"])
             dist["min"] = bb["min"] if dist["min"] is None \
                 else min(dist["min"], bb["min"])
+        self._export_stat(label, wall_s, blocks, extra)
+
+    @staticmethod
+    def _export_stat(label: str, wall_s: float, blocks: int,
+                     extra: Dict[str, Any]) -> None:
+        """Stream the recorded row into the rtpu_data_operator_* families
+        (one increment a stage record, not a block)."""
+        try:
+            _op_seconds_total.inc(wall_s, tags={"operator": label,
+                                                "phase": "wall"})
+            if blocks:
+                _op_blocks_total.inc(float(blocks),
+                                     tags={"operator": label})
+            for phase in ("udf", "backpressure"):
+                v = extra.get(f"{phase}_s")
+                if v:
+                    _op_seconds_total.inc(v, tags={"operator": label,
+                                                   "phase": phase})
+            for d in ("in", "out"):
+                r = extra.get(f"rows_{d}")
+                if r:
+                    _op_rows_total.inc(float(r), tags={"operator": label,
+                                                       "dir": d})
+                b = extra.get(f"bytes_{d}")
+                if b:
+                    _op_bytes_total.inc(float(b), tags={"operator": label,
+                                                        "dir": d})
+        except Exception:  # noqa: BLE001 — export never fails a stage
+            pass
 
     def stats_report(self) -> Dict[str, Any]:
         """Structured per-operator report from the running aggregates
@@ -664,6 +906,8 @@ class StreamingExecutor:
         per_worker_cap = 2
         pool = _WorkerPool(label, payload, cards)
         t0 = time.perf_counter()
+        narrate = Progress(label)
+        last_gauge = 0.0
         n = 0
         retries = 0
         backpressure_s = 0.0
@@ -672,6 +916,21 @@ class StreamingExecutor:
         # Entries: {"block", "seq", "slot", "inc", "attempts"}, in
         # submission order.
         inflight: List[Dict[str, Any]] = []
+
+        def note_inflight() -> None:
+            # Throttled: the gauge is observability, not bookkeeping.
+            nonlocal last_gauge
+            now = time.perf_counter()
+            if now - last_gauge >= 0.25:
+                last_gauge = now
+                _inflight_gauge.set(float(len(inflight)),
+                                    tags={"stage": label})
+
+        def progress() -> None:
+            narrate.tick(lambda elapsed: (
+                f"{n} blocks out, {len(inflight)} in flight on "
+                f"{len(pool.slots)} actors, {elapsed:.0f}s elapsed "
+                f"({n / elapsed:.1f} blocks/s)"))
 
         def send(entry: Dict[str, Any], slot: _Slot) -> None:
             slot.load += 1
@@ -698,6 +957,7 @@ class StreamingExecutor:
             entry = {"block": block, "attempts": 0}
             inflight.append(entry)
             send(entry, slot)
+            note_inflight()
 
         def heal(slot: _Slot) -> None:
             """A worker died: replace it on the same card and resend its
@@ -724,6 +984,7 @@ class StreamingExecutor:
                 e["attempts"] += 1
                 retries += 1
                 _count("retries")
+                _retries_total.inc(1.0, tags={"cause": "actor_died"})
                 send(e, new)
 
         def drain_one() -> Block:
@@ -750,6 +1011,8 @@ class StreamingExecutor:
                 raise PoolWorkerError(label, done["slot"], "the UDF", value)
             n += 1
             out_s.append(time.perf_counter() - t0)
+            note_inflight()
+            progress()
             return value
 
         finished = False
@@ -818,6 +1081,22 @@ class StreamingExecutor:
 
     # -- all-to-all -----------------------------------------------------------
 
+    def _pmap(self, fn: Callable[[Any], Any], items) -> Iterator[Any]:
+        """``fn`` over ``items`` on a thread pool of this process (at most
+        ``max_tasks_in_flight`` at once), the results in ``items``' order
+        as each is ready: an exchange's partition or reduce step."""
+        items = list(items)
+        if not items:
+            return
+        workers = max(1, min(self.ctx.max_tasks_in_flight, len(items)))
+        pool = cf.ThreadPoolExecutor(workers, thread_name_prefix="rtpu-data")
+        try:
+            futs = [pool.submit(fn, x) for x in items]
+            for f in futs:
+                yield f.result()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def _repartition(self, inputs: Iterator[Block],
                      num_blocks: int) -> Iterator[Block]:
         blocks = list(inputs)
@@ -834,6 +1113,143 @@ class StreamingExecutor:
                     parts.append(BlockAccessor(b).slice(lo, hi))
                 off += c
             yield concat_blocks(parts) if parts else rows_to_block([])
+
+    def _random_shuffle(self, inputs: Iterator[Block],
+                        seed: Optional[int]) -> Iterator[Block]:
+        """Two-round push shuffle (reference: planner/exchange push-based
+        shuffle): block i splits into P random parts by
+        ``default_rng(seed + i)``, and reduce j concatenates part j of
+        every block and permutes it by ``default_rng(seed + 10_000 + j)``.
+        P is ``shuffle_partitions``, else the number of input blocks."""
+        blocks = list(inputs)
+        P = self.ctx.shuffle_partitions or max(1, len(blocks))
+
+        def split(i: int) -> List[Block]:
+            rng = np.random.default_rng(None if seed is None else seed + i)
+            acc = BlockAccessor(blocks[i])
+            perm = rng.permutation(acc.num_rows())
+            return [acc.take_rows(part) for part in np.array_split(perm, P)]
+
+        parts = list(self._pmap(split, range(len(blocks))))
+
+        def reduce(j: int) -> Block:
+            rng = np.random.default_rng(
+                None if seed is None else seed + 10_000 + j)
+            acc = BlockAccessor(concat_blocks([p[j] for p in parts]))
+            return acc.take_rows(rng.permutation(acc.num_rows()))
+
+        yield from self._pmap(reduce, range(P))
+
+    def _sort(self, inputs: Iterator[Block], key: str,
+              descending: bool) -> Iterator[Block]:
+        """Sample-based range-partition sort (reference: exchange/sort):
+        up to 20 samples a block (``default_rng(0)``), P - 1 quantiles of
+        them as bounds (P = the number of input blocks), each block split
+        by ``searchsorted(side="right")``, each range stably sorted.
+        Descending reverses the rows inside each range and the order of
+        the ranges."""
+        blocks = list(inputs)
+        P = max(1, len(blocks))
+
+        def sample(b: Block) -> np.ndarray:
+            v = BlockAccessor(b).to_numpy()[key]
+            if len(v) == 0:
+                return v
+            idx = np.random.default_rng(0).choice(len(v), min(20, len(v)),
+                                                  replace=False)
+            return v[idx]
+
+        samples = [s for s in self._pmap(sample, blocks) if len(s)]
+        if not samples:
+            yield from blocks
+            return
+        qs = np.quantile(np.sort(np.concatenate(samples)),
+                         np.linspace(0, 1, P + 1)[1:-1]) if P > 1 else []
+
+        def partition(b: Block) -> List[Block]:
+            acc = BlockAccessor(b)
+            v = acc.to_numpy()[key]
+            ids = np.searchsorted(qs, v, side="right") if P > 1 \
+                else np.zeros(len(v), int)
+            return [acc.take_rows(np.nonzero(ids == p)[0]) for p in range(P)]
+
+        parts = list(self._pmap(partition, blocks))
+
+        def merge(j: int) -> Block:
+            acc = BlockAccessor(concat_blocks([p[j] for p in parts]))
+            order = np.argsort(acc.to_numpy()[key], kind="stable")
+            if descending:
+                order = order[::-1]
+            return acc.take_rows(order)
+
+        outs = list(self._pmap(merge, range(P)))
+        yield from (outs[::-1] if descending else outs)
+
+    def _zip(self, inputs: Iterator[Block],
+             other_plan: List[L.LogicalOp]) -> Iterator[Block]:
+        """Each left block with the same rows of the right side (a column
+        whose name is taken gets a ``_1`` suffix); the row counts must
+        match."""
+        left = list(inputs)
+        right = list(StreamingExecutor(self.ctx).execute(other_plan))
+        lcounts = [BlockAccessor(b).num_rows() for b in left]
+        rcounts = [BlockAccessor(b).num_rows() for b in right]
+        if sum(lcounts) != sum(rcounts):
+            raise ValueError(
+                f"zip requires equal row counts, got {sum(lcounts)} vs "
+                f"{sum(rcounts)}")
+        offsets = np.concatenate([[0], np.cumsum(lcounts)]).astype(int)
+
+        def zip_slice(i: int) -> Block:
+            start, end = offsets[i], offsets[i + 1]
+            parts = []
+            off = 0
+            for rb, c in zip(right, rcounts):
+                lo, hi = max(start - off, 0), min(end - off, c)
+                if lo < hi:
+                    parts.append(BlockAccessor(rb).slice(lo, hi))
+                off += c
+            out = dict(BlockAccessor(left[i]).to_numpy())
+            for k, v in BlockAccessor(concat_blocks(parts)).to_numpy().items():
+                out[k if k not in out else f"{k}_1"] = v
+            return out
+
+        yield from self._pmap(zip_slice, range(len(left)))
+
+    def _aggregate(self, inputs: Iterator[Block],
+                   op: L.Aggregate) -> Iterator[Block]:
+        """Hash-partitioned groupby (reference: grouped_data.py): P =
+        min(blocks, 8) partitions by ``crc32(repr(key)) % P`` over the
+        key's Python values, each aggregated in numpy with pandas'
+        answers (``_group_agg``), keys sorted within a partition. A key of
+        None gives one global row."""
+        blocks = list(inputs)
+        key = op.key
+        if key is None:
+            cols = BlockAccessor(concat_blocks(blocks)).to_numpy() \
+                if blocks else {}
+            n = BlockAccessor(cols).num_rows()
+            row: Dict[str, Any] = {}
+            for kind, col, out_name in op.aggs:
+                row[out_name] = n if kind == "count" else \
+                    _global_agg(kind, np.asarray(cols[col]))
+            yield rows_to_block([row])
+            return
+        P = max(1, min(len(blocks), 8))
+
+        def partition(b: Block) -> List[Block]:
+            acc = BlockAccessor(b)
+            v = acc.to_numpy()[key]
+            # A stable hash across processes (Python's hash() is salted),
+            # over Python scalars: a numpy scalar's repr differs.
+            h = np.array([zlib.crc32(repr(x).encode()) % P
+                          for x in v.tolist()], dtype=np.int64)
+            return [acc.take_rows(np.nonzero(h == p)[0]) for p in range(P)]
+
+        parts = list(self._pmap(partition, blocks))
+        yield from self._pmap(
+            lambda j: _group_agg([p[j] for p in parts], key, op.aggs),
+            range(P))
 
     def _limit(self, inputs: Iterator[Block], n: int) -> Iterator[Block]:
         taken = 0

@@ -5,9 +5,8 @@ data/_internal/logical/ — logical operators, optimizers.py rewrite rules,
 notably map fusion — and _internal/planner/). The plan is a chain (Union
 references sibling plans); the optimizer fuses adjacent row/batch maps with
 compatible compute so one task does the whole pipeline stage (the
-reference's OperatorFusionRule). The shuffle, sort, zip and aggregate
-operators stay for the rules that reason about them; the port's executor
-does not run them yet.
+reference's OperatorFusionRule). The exchanges (repartition, shuffle,
+sort, zip, aggregate) each stand alone as a stage.
 """
 from __future__ import annotations
 

@@ -49,6 +49,20 @@ _define("RTPU_DATA_FT_RETRIES", int, 3,
         "Per-block retry budget of a self-healing pool stage: how many "
         "times one input block may be resent after its pool worker died "
         "before the stage raises.")
+_define("RTPU_DATA_PROGRESS", bool, False,
+        "Per-operator progress lines from the streaming data executor "
+        "(one stderr line per operator every RTPU_DATA_PROGRESS_S while "
+        "a stage runs, reference: Ray Data's ProgressBar rows). Off by "
+        "default: interactive use only.")
+_define("RTPU_DATA_PROGRESS_S", float, 5.0,
+        "Seconds between data-executor progress lines when "
+        "RTPU_DATA_PROGRESS is on.")
+_define("RTPU_CHECKPOINT_DIR", str, None,
+        "Directory for host-local checkpoint files: the data layer's "
+        "ingest cursors and streaming-split handout journals (default: "
+        "rtpu_checkpoints under the system temp root). Shared by every "
+        "process on the host, so a restarted driver or consumer resumes "
+        "from the records its predecessor wrote.")
 
 
 # -- serve: deadlines, admission control, circuit breaking -------------------

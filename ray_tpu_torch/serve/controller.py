@@ -74,9 +74,10 @@ from .. import flags
 from ..core import sink as core_sink
 from ..core.sink import MetricsSink
 from ..util import procs
+from ..util.procs import listen, socket_address
 from .autoscaler import ServeAutoscaler
 from .replica import (ReplicaClient, ReplicaDiedError, connect,
-                      error_payload, listen, replica_main, socket_address)
+                      error_payload, replica_main)
 
 logger = logging.getLogger(__name__)
 

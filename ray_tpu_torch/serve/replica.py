@@ -39,8 +39,6 @@ stream's hop ends when its generator ends, after the user's own.
 from __future__ import annotations
 
 import collections
-import multiprocessing
-import multiprocessing.connection as mpc
 import os
 import pickle
 import sys
@@ -50,6 +48,7 @@ import traceback
 from typing import Any, Dict, Optional, Tuple
 
 from ..util import procs
+from ..util.procs import listen
 from . import context as serve_context
 from . import trace
 from .admission import BackPressureError
@@ -72,23 +71,7 @@ class ReplicaDiedError(RuntimeError):
     reached)."""
 
 
-def authkey() -> bytes:
-    """The key every process of one serve instance shares: spawned
-    children inherit their parent's."""
-    return bytes(multiprocessing.current_process().authkey)
-
-
-# Connections a listener queues before it accepts them. Past its queue a
-# connect either waits or, on some kernels, fails at once with EAGAIN:
-# ``connect`` retries that for a while (the listener is alive, only busy).
-LISTEN_BACKLOG = 128
 _CONNECT_RETRY_S = 5.0
-
-
-def listen(address: str):
-    """An authenticated AF_UNIX listener on ``address``."""
-    return mpc.Listener(address, family="AF_UNIX", authkey=authkey(),
-                        backlog=LISTEN_BACKLOG)
 
 
 def connect(address: str, retry_s: Optional[float] = None):
@@ -97,16 +80,6 @@ def connect(address: str, retry_s: Optional[float] = None):
     queue is full (``util/procs.py`` ``connect``)."""
     return procs.connect(address, _CONNECT_RETRY_S if retry_s is None
                          else retry_s)
-
-
-def socket_address(directory: str, name: str) -> str:
-    """An AF_UNIX address for ``name``: a file in ``directory``, or, where
-    that path is too long for a socket, a name in Linux's abstract
-    namespace."""
-    path = os.path.join(directory, name)
-    if len(path.encode()) <= 100:
-        return path
-    return "\0" + os.path.basename(directory) + "-" + name
 
 
 # -------------------------------------------------------- the user object

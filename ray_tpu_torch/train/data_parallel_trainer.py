@@ -74,9 +74,13 @@ class DataParallelTrainer:
     # ------------------------------------------------------------------- fit
 
     def fit(self) -> Result:
-        # Before any worker starts: the loop and its config go by pickle.
+        # Before any worker starts: the loop, its config and the datasets
+        # every rank gets as they are (split iterators, say) go by pickle.
         dumps("train_loop_per_worker", self.train_loop_per_worker)
         dumps("train_loop_config", self.train_loop_config)
+        for k, ds in self.datasets.items():
+            if not hasattr(ds, "split_shard"):
+                dumps(f"datasets[{k!r}]", ds)
         name = self.run_config.name or f"train_{uuid.uuid4().hex[:8]}"
         storage = StorageContext(
             storage_path=self.run_config.resolved_storage_path(),

@@ -49,6 +49,32 @@ TERMINATE_TIMEOUT_S = 5.0
 
 _SEQ = itertools.count(1)
 
+# Connections a listener queues before it accepts them. Past its queue a
+# connect either waits or, on some kernels, fails at once with EAGAIN:
+# ``connect`` retries that for a while (the listener is alive, only busy).
+LISTEN_BACKLOG = 128
+
+
+def listen(address: str):
+    """An AF_UNIX listener on ``address``, authenticated with this
+    process's authkey (which spawned and forked children share)."""
+    import multiprocessing
+
+    return mpc.Listener(
+        address, family="AF_UNIX",
+        authkey=bytes(multiprocessing.current_process().authkey),
+        backlog=LISTEN_BACKLOG)
+
+
+def socket_address(directory: str, name: str) -> str:
+    """An AF_UNIX address for ``name``: a file in ``directory``, or, where
+    that path is too long for a socket, a name in Linux's abstract
+    namespace."""
+    path = os.path.join(directory, name)
+    if len(path.encode()) <= 100:
+        return path
+    return "\0" + os.path.basename(directory) + "-" + name
+
 
 def connect(address: str, retry_s: float):
     """An authenticated connection (this process's authkey, which spawned

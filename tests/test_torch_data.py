@@ -324,7 +324,13 @@ def test_stats_report_the_last_run():
 
 
 def test_unported_operators_raise():
-    ds = td.Dataset([TL.InputData(refs=[{"id": np.arange(4)}]),
-                     TL.Sort(key="id")])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A LogicalOp the executor does not know raises NotImplementedError
+    (every op of ``data/logical.py`` runs:
+    ``tests/test_torch_data_exchange.py::test_every_logical_op_executes``)."""
+
+    class Unknown(TL.LogicalOp):
+        pass
+
+    ds = td.Dataset([TL.InputData(refs=[{"id": np.arange(4)}]), Unknown()])
+    with pytest.raises(NotImplementedError, match="does not know"):
         ds.take_all()

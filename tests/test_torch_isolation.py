@@ -77,10 +77,11 @@ SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
                  "controller", "handle", "api", "llm", "prefix_cache",
                  "disagg", "llm_engine", "proxy", "grpc_proxy", "autoscaler",
                  "multiplex", "trace")
-CORE_MODULES = ("telemetry", "events", "sink")
+CORE_MODULES = ("telemetry", "events", "sink", "checkpoint")
 PLANE_UTIL_MODULES = ("metrics", "tracing", "state")
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
-                "executor", "dataset", "iterator", "preprocessors")
+                "executor", "dataset", "iterator", "preprocessors", "grouped",
+                "tfrecord_lite")
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
                  "worker_group", "backend", "backend_executor",
                  "data_parallel_trainer", "predictor")
@@ -484,6 +485,28 @@ def test_torch_trainer_refuses_before_any_spawn(monkeypatch):
     # Asked for explicitly, the CPU is taken: the spawn is reached.
     with pytest.raises(AssertionError, match="a worker was spawned"):
         TorchTrainer(_noop_loop, train_loop_config={}, device="cpu").fit()
+
+
+def test_unpicklable_split_iterator_refuses_before_any_spawn(monkeypatch):
+    """A dataset every rank gets as it is (a list of split iterators) must
+    pickle: a split's batch generator in place of its SplitIterator
+    raises in fit(), before any worker is spawned, naming the entry."""
+    import ray_tpu_torch.data as td
+    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.train import worker_group
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a worker was spawned")
+
+    monkeypatch.setattr(worker_group, "_WorkerProcess", no_spawn)
+    its = td.range(8).streaming_split(1)
+    with pytest.raises(TypeError, match=r"datasets\['splits'\]"):
+        TorchTrainer(_noop_loop, train_loop_config={}, device="cpu",
+                     datasets={"splits": [its[0].iter_batches()]}).fit()
+    # The iterators themselves pickle: the spawn is reached.
+    with pytest.raises(AssertionError, match="a worker was spawned"):
+        TorchTrainer(_noop_loop, train_loop_config={}, device="cpu",
+                     datasets={"splits": its}).fit()
 
 
 # Run as a file: a replica process runs it again as its main module, so
