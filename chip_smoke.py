@@ -4,7 +4,10 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and the CUDA toolkit; the hand-written kernels are built from the
 checkout's sources at first use (into ``ray_tpu_torch/_build/``). It imports
-nothing of JAX or of the JAX package. Each phase prints one JSON line:
+nothing of JAX or of the JAX package. Each phase prints one JSON line,
+with ``phase_s``, its own wall in seconds. Processes it starts cache
+their compiled bytecode under ``ray_tpu_torch/_build/pycache``
+(``keep_bytecode``):
 
 1. ``build``: builds the flash-attention kernels (K1, the forward,
    replacing the Pallas ``_fwd_kernel``; K2 and K3, the backward, replacing
@@ -43,12 +46,15 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 4. ``prefill_time`` and ``profile``: each prefill bucket's time; the
    device busy time and idle share of a decode tick and of two prefills
    (torch.profiler). Then the Serve layer (``ray_tpu_torch.serve``),
-   Llama-3-8B at full width and depth on replica processes, one card a
-   replica, weights made from SEED on the replica's card
-   (``SeededLlama``), one deployment at a time through ``serve.run`` and
+   Llama-3-8B at full width and SERVE_LAYERS (8) of its 32 layers on
+   replica processes, one card a replica, weights made from SEED on the
+   replica's card (``SeededLlama``), held to ``serve_witness`` (the same
+   model in this process behind the slice's engine: its tokens for the
+   slice's prompts, its decode tick and prefill times), one deployment at
+   a time through ``serve.run`` and
    its handle: ``serve_stream`` (the streaming deployment with
    continuous batching, 4 slots: the slice's prompts streamed four at a
-   time, every stream's tokens equal to the in-process engine's; four
+   time, every stream's tokens equal to the witness's; four
    more, one closed after 3 tokens, whose slot must be free before the
    engine's next decode step ends; TTFT beside the in-process prefill,
    the gap between tokens at 4 streams beside the in-process tick),
@@ -102,10 +108,11 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    again under "dots" remat) and K2 and K3 24 times each. Prints step ms,
    tokens/s, an MFU-style share, peak memory, and one profiled step.
    Then ``moe_train``: the same model with 8 experts, top-2 (capacity
-   1.25) in place of its FFN, at full width and depth: 5 AdamW steps with
-   48/24/24 launches a step, finite and falling losses, aux per layer in
+   1.25) in place of its FFN, at full width and MOE_LAYERS (8) of its 24
+   layers: 5 AdamW steps with
+   16/8/8 launches a step, finite and falling losses, aux per layer in
    (0.1, 10); step ms, tokens/s, peak memory, one profiled step; then its
-   weights in bf16 serve one 2048-token prefill (24 K1 launches) and 16
+   weights in bf16 serve one 2048-token prefill (8 K1 launches) and 16
    greedy decode steps (finite logits, tokens in range).
 6. ``dist_train``: the mesh training path. The same model, batch and
    seed through ``transformer_train_step(cfg, mesh=make_mesh(
@@ -145,11 +152,12 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    pool workers -> a task-stage ``map_batches`` that makes each row's
    224x224x3 uint8 image from ``default_rng(SEED + id)`` ->
    ``ImageNormalizer`` ->
-   ``BatchPredictor(TorchPredictor)`` over ViT-L/16 (seeded weights in a
+   ``BatchPredictor(TorchPredictor)`` over ViT-L/16 at DATA_VIT_LAYERS
+   (8) of its 24 layers (seeded weights in a
    dict checkpoint), batch 64, one pool worker a visible card up to 4,
    each running K1 -> ``take_all``. Checks every id once and in order,
-   finite [64, 1000] f32 logits, each worker's K1 launches at 24 a batch
-   (24 x 32 W in all), the logits against the same batches through
+   finite [64, 1000] f32 logits, each worker's K1 launches at 8 a batch
+   (8 x 32 W in all), the logits against the same batches through
    ``vit.forward`` in this process on card 0 after the pool has gone (bit
    for bit on one card; on more, each batch bit for bit or within
    DATA_MULTI_REL_L2), then the same normalised data through
@@ -223,7 +231,8 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    wall and spawn seconds, the worker's step ms beside the direct step's
    and the witness's, tokens/s a card and peak memory a rank.
 11. ``data_ingest``: BASELINE config 2's GPT-2 125M (train_glue's recipe,
-   full width, f32 params, bf16 compute, 8 x 512 positions a card) trained
+   full width, INGEST_LAYERS (4) of its 12 layers, f32 params, bf16
+   compute, 8 x 512 positions a card) trained
    through ``TorchTrainer`` from the data layer (``ray_tpu_torch.data``),
    one worker a visible card up to 4 (W). 24 x 8 rows a card, each an
    ``id`` and 513 int64 tokens from ``default_rng(SEED)`` over 50257, go
@@ -241,7 +250,7 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    finite, the first within 0.5 of ln 50257; on one card the 24 losses bit
    for bit those of the bare one-device step fed the same batches in the
    same order, on more within GLUE_LOSS_RTOL of the bare data=W step fed
-   each rank's batches; K1/K2/K3 576/288/288 launches a rank; in the
+   each rank's batches; K1/K2/K3 192/96/96 launches a rank; in the
    driver ``sort("id")`` gives 0..N-1, ``groupby("shard").count()`` the
    rows a shard as numpy counts them, and ``zip`` of the ids with
    themselves ``id`` and ``id_1``; and after the fit no worker process,
@@ -249,7 +258,30 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
    MB/s, the read's and the shuffle's wall and rows/s (``stats()``), each
    arm's step and batch wait (ms), tokens/s a card beside
    ``train_glue``'s, and a split's block fetch (ms).
-12. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
+12. ``tune_train``: Tune (``ray_tpu_torch.tune``), each trial a process
+   of its own on the cards the controller gives it (a trial forks from
+   the fork server with torch preloaded). Arm A: ``gpt2_trial`` (GPT-2
+   125M at full width and depth, train_glue's seed and tokens, 2 AdamW
+   steps an iteration at the trial's lr) at lr 1e-4, 3e-4, 1e-3, 3e-3,
+   one card a trial, under ASHA (loss, min, max_t 8, grace 2, reduction
+   2). Arm B: ``TorchTrainer(gpt2_train_loop)`` through ``Tuner`` (its
+   ``as_trainable``), lr 3e-4 and 1e-3 in ``train_loop_config``, one
+   worker a trial. Arm C: PPO at ``ppo_train``'s config (``SmokePPO``,
+   cuDNN deterministic) as a Trainable, stopped at iteration 2. Checks:
+   every trial ends, none in error; 24/12/12 launches a step in every
+   trial and worker; the lr 3e-4 losses of A (as many steps as ran) and
+   B (12) bit for bit the same steps in this process, and B's also
+   train_glue's (one card); each trial's stop where ASHA, replayed here
+   on the results in their order, stops it; the best result the least
+   final loss; B's intermediate results numbered by the loop's reports
+   and its best checkpoint read back to the loop's leaf sums; C's two
+   results bit for bit the same PPO in this process; with 2 cards or
+   more B's trials at once on two cards, with 4 A's four at once on
+   four; no trial process or worker left. Prints each trial's spawn,
+   first result, iterations, median step ms and peak, and the fits'
+   walls against the sum of their trials' and the gaps between trials
+   on a card.
+13. ``kernel_time``: K1, K2, K3 and K2+K3 together (each with its
    achieved TFLOP/s) at the serving and training shapes beside their plain
    versions, the SDPA forward or backward (the yardstick, never used by
    the port: on contiguous copies, each backend that takes them pinned
@@ -360,6 +392,10 @@ VIT_TIMED = 5
 # and shapes); on more, a card's cuBLAS may choose another algorithm, so a
 # batch is bit for bit or within DATA_MULTI_REL_L2 (relative L2).
 DATA_ROWS, DATA_BLOCKS, DATA_BATCH, DATA_MAX_WORKERS = 2048, 8, 64, 4
+# data_infer's ViT-L/16 runs DATA_VIT_LAYERS of its 24 layers (its
+# witness, the forward in this process, at the same depth; vit_infer
+# holds the model at full depth; PERF.md section 4 lists the cut).
+DATA_VIT_LAYERS = 8
 DATA_PREFETCH = 2
 DATA_MULTI_REL_L2 = 1e-5
 # PPO on the Atari-shaped CnnRolloutBenchEnv (BASELINE config 4's shape):
@@ -440,6 +476,22 @@ GLUE_LOSS_RTOL, GLUE_HELD_STEPS = 1e-3, 5
 # INGEST_SHARDS TFRecord files; INGEST_STEPS steps from the shard of
 # get_dataset_shard, then INGEST_STEPS from the rank's streaming split.
 INGEST_BATCHES, INGEST_SHARDS, INGEST_STEPS = 24, 16, 12
+# data_ingest's model runs INGEST_LAYERS of GPT-2 125M's 12 layers (its
+# witness, the bare step, at the same depth; PERF.md section 4 lists the
+# cut).
+INGEST_LAYERS = 4
+# tune_train: train_glue's GPT-2 125M recipe (one card a trial) and
+# ppo_train's PPO as Tune trials. Arm A: a trial a learning rate of
+# TUNE_LRS under ASHA (grace TUNE_GRACE, reduction TUNE_RF, at most
+# TUNE_MAX_T iterations of TUNE_STEPS_PER_ITER AdamW steps); arm B: a
+# TorchTrainer trial a learning rate of TUNE_TRAINER_LRS (train_glue's
+# 12 steps); arm C: TUNE_PPO_ITERS iterations of PPO.
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_MAX_T, TUNE_GRACE, TUNE_RF, TUNE_STEPS_PER_ITER = 8, 2, 2, 2
+TUNE_TRAINER_LRS = (3e-4, 1e-3)
+TUNE_PPO_ITERS = 2
+# Arm A's trials run on their card (a rehearsal on the CPU sets "cpu").
+TUNE_DEVICE = "cuda:0"
 SP_SEQ, SP_RANKS, SP_HEADS, SP_KV_HEADS, SP_HEAD_DIM = 8192, 4, 32, 8, 128
 SP_REL_L2 = 2e-2
 # moe_train: bench_350m with Mixtral's routing (8 experts, top-2, capacity
@@ -448,6 +500,9 @@ SP_REL_L2 = 2e-2
 # greedy decode steps. The aux loss per layer must lie in (0.1, 10), as
 # tests/test_moe.py holds it (about 1 at uniform routing).
 MOE_EXPERTS, MOE_TOP_K = 8, 2
+# moe_train and dist_train's expert layout run MOE_LAYERS of bench_350m's
+# 24 layers (PERF.md section 4 lists the cut).
+MOE_LAYERS = 8
 MOE_WARM_STEPS, MOE_TIMED_STEPS = 2, 3
 MOE_PREFILL, MOE_DECODE = 2048, 16
 # dist_train's layouts past fsdp, with 2-4 cards: seq (ring, Ulysses) at
@@ -465,12 +520,46 @@ DIST_LAYOUTS = ("fsdp", "seq_ring", "seq_ulysses", "expert", "pipe")
 # past the 256 MiB default.
 SERVE_BATCH_LENS = (1100, 1300, 1500, 2048)
 SERVE_CLOSE_AFTER = 3
+# The serve phases run Llama-3-8B at full width and SERVE_LAYERS of its 32
+# layers (the slice holds it at full depth; what the Serve layer adds,
+# processes, routing and streams, does not depend on the depth), held to
+# a witness at that depth (phase_serve_witness). PERF.md section 4 lists
+# the cut.
+SERVE_LAYERS = 8
 SERVE_PREFIX_MB = 2048
 SERVE_READY_TIMEOUT_S = 600
 
 
+# The wall clock of the last phase line: each line's ``phase_s``, unless
+# the phase gives its own, is the seconds since the line before it (the
+# first since the script's start).
+_LAST_LINE = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    now = time.perf_counter()
+    fields.setdefault("phase_s", now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def keep_bytecode() -> None:
+    """Let this process and the processes it starts cache the bytecode
+    they compile, under ``ray_tpu_torch/_build/pycache`` (git-ignored),
+    where the checkout holds the package: on a machine that sets
+    PYTHONDONTWRITEBYTECODE, every fresh process (a worker, a replica, a
+    trial) otherwise compiles torch's Python anew (``import torch`` 8.2-9.0
+    s on the H100's host, 6.2 s with the cache; PERF.md section 5)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "ray_tpu_torch")):
+        return
+    prefix = os.path.join(here, "ray_tpu_torch", "_build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
 
 
 def card_line() -> str:
@@ -714,7 +803,6 @@ def phase_kernel_check_bwd(fa, device):
 
 def phase_slice(device):
     """The main path: the engine serving 6 requests on Llama-3-8B."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch import flags
@@ -762,9 +850,7 @@ def phase_slice(device):
         prefills.append((int(tokens.shape[1]), int(length[0]), out[0]))
         return out
 
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in PROMPT_LENS]
+    prompts = slice_prompts(cfg)
     eng.tick, eng._tick, eng._prefill_one = (timed_tick, checked_step,
                                              recorded_prefill)
     stop = threading.Event()
@@ -896,6 +982,13 @@ def phase_slice(device):
 
 
 def phase_prefill_time(cfg, params, prompts, device):
+    rows = _prefill_rows(cfg, params, prompts, device)
+    emit("prefill_time", model="llama3_8b", rows=rows)
+    return {r["bucket"]: r["ms_median"] for r in rows}
+
+
+def _prefill_rows(cfg, params, prompts, device):
+    """Each prefill bucket of ``prompts`` timed: 3 calls after a warm-up."""
     import torch
 
     from ray_tpu_torch.models.generate import prefill
@@ -919,8 +1012,7 @@ def phase_prefill_time(cfg, params, prompts, device):
                 times.append((time.perf_counter() - t) * 1e3)
         rows.append({"bucket": S, "prompt_len": len(prompt),
                      "ms_median": statistics.median(times), "ms": times})
-    emit("prefill_time", model="llama3_8b", rows=rows)
-    return {r["bucket"]: r["ms_median"] for r in rows}
+    return rows
 
 
 # In one process torch.profiler loses kernel records, more the older the
@@ -1017,11 +1109,20 @@ def phase_profile(cfg, params, prompts, eng, tick_s, device):
 # ------------------------------------------------------------ serve phases
 
 
+def serve_cfg():
+    """The serve phases' model: Llama-3-8B in bf16, SERVE_LAYERS layers."""
+    import torch
+
+    from ray_tpu_torch.models.configs import llama3_8b
+
+    return llama3_8b(param_dtype=torch.bfloat16, n_layers=SERVE_LAYERS)
+
+
 class SeededLlama:
     """The serve phases' params factory, run in the replica process:
-    Llama-3-8B in bf16 from ``seed`` (SEED by default) on the replica's
-    card, as phase_slice makes the witness's (the same seed on a card of
-    the same kind gives the same weights)."""
+    ``serve_cfg()``'s model from ``seed`` (SEED by default) on the
+    replica's card, as phase_serve_witness makes the witness's (the same
+    seed on a card of the same kind gives the same weights)."""
 
     def __init__(self, seed=SEED):
         self.seed = seed
@@ -1030,13 +1131,78 @@ class SeededLlama:
         import torch
 
         from ray_tpu_torch.device import resolve_device
-        from ray_tpu_torch.models.configs import llama3_8b
         from ray_tpu_torch.models.transformer import init_params
 
         dev = resolve_device(None)
-        return init_params(llama3_8b(param_dtype=torch.bfloat16),
+        return init_params(serve_cfg(),
                            torch.Generator(device=dev).manual_seed(self.seed),
                            dev)
+
+
+def slice_prompts(cfg):
+    """The slice's prompts: PROMPT_LENS tokens from default_rng(SEED)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+
+
+def phase_serve_witness(device):
+    """The serve phases' witness, at their depth: serve_cfg()'s model from
+    SeededLlama in this process behind the slice's engine (NUM_SLOTS
+    slots, prompts to MAX_PROMPT, MAX_NEW new tokens), the slice's
+    prompts: each one's greedy tokens, the decode tick at 4 busy slots and
+    each prefill bucket's time. Returns (cfg, params, prompts, tokens,
+    engine, tick seconds, prefill ms by bucket)."""
+    import torch
+
+    from ray_tpu_torch.serve.llm_engine import ContinuousBatchingEngine
+
+    cfg = serve_cfg()
+    prompts = slice_prompts(cfg)
+    t0 = time.perf_counter()
+    params = SeededLlama()()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ContinuousBatchingEngine(
+        cfg, params, num_slots=NUM_SLOTS, max_prompt_len=MAX_PROMPT,
+        max_new_tokens=MAX_NEW, seed=SEED, model="llama3_8b", device=device)
+    stop = threading.Event()
+    ticker = threading.Thread(target=eng.run_forever, args=(stop,),
+                              daemon=True)
+    ticker.start()
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, timeout=600) for p in prompts]
+        outs = [eng.result(r, timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        ticker.join(timeout=60)
+    if ticker.is_alive() or eng.failed is not None:
+        raise RuntimeError(f"engine ticker did not stop cleanly: "
+                           f"{eng.failed!r}")
+    held = [eng.submit(p) for p in prompts[:NUM_SLOTS]]
+    eng.tick()  # warm
+    four = []
+    for _ in range(DECODE_TICKS):
+        t = time.perf_counter()
+        eng.tick()
+        four.append(time.perf_counter() - t)
+    for r in held:
+        eng.abort(r)
+    tick_s = statistics.median(four)
+    rows = _prefill_rows(cfg, params, prompts, device)
+    failures = [f"request {i}: {len(o)} tokens" for i, o in enumerate(outs)
+                if len(o) != MAX_NEW]
+    emit("serve_witness", ok=not failures, failures=failures,
+         model="llama3_8b", n_layers=cfg.n_layers, init_s=init_s,
+         wall_s=wall, tokens=sum(len(o) for o in outs),
+         decode_tick_ms_4_slots_median=tick_s * 1e3, prefill=rows)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return (cfg, params, prompts, outs, eng, tick_s,
+            {r["bucket"]: r["ms_median"] for r in rows})
 
 
 def _serve_run(app, **run_kwargs):
@@ -1144,8 +1310,8 @@ def phase_serve_stream(cfg, prompts, witness, tick_s, prefill_ms,
     replica process (the card's first free one), behind the HTTP proxy
     and, where ``grpc`` imports, the gRPC proxy (both on free ports):
     PROMPT_LENS streamed through the handle four at a time, each stream's
-    greedy tokens equal to the in-process engine's (phase_slice, the
-    witness); then four more, one closed after SERVE_CLOSE_AFTER tokens,
+    greedy tokens equal to the in-process engine's (phase_serve_witness,
+    the witness); then four more, one closed after SERVE_CLOSE_AFTER tokens,
     whose slot must be free before the engine's next decode step ends. A
     first round, one token a prompt, one prompt at a time, meets each
     prefill shape once (its TTFT is the cold one). Then, on the same
@@ -1904,16 +2070,15 @@ AUTOSCALE_STREAMS = 8
 
 
 def mux_generate(params, prompt, max_new_tokens):
-    """The multiplexed deployment's work: Llama-3-8B's greedy
+    """The multiplexed deployment's work: serve_cfg()'s greedy
     ``generate`` of one prompt, on the params' card."""
     import torch
 
-    from ray_tpu_torch.models.configs import llama3_8b
     from ray_tpu_torch.models.generate import generate
 
     dev = params["embed"].device
     out = generate(params, torch.tensor([prompt], device=dev),
-                   llama3_8b(param_dtype=torch.bfloat16), max_new_tokens)
+                   serve_cfg(), max_new_tokens)
     return out[0, len(prompt):].tolist()
 
 
@@ -2448,16 +2613,19 @@ def ring_against_f32(fa, device):
 
 
 def moe_config(**overrides):
+    """bench_350m with MOE_EXPERTS experts, top MOE_TOP_K, MOE_LAYERS
+    layers (``overrides`` win)."""
     from ray_tpu_torch.models.configs import bench_350m
 
-    return bench_350m(remat=True, remat_policy="dots",
-                      moe_num_experts=MOE_EXPERTS,
-                      moe_experts_per_token=MOE_TOP_K, **overrides)
+    return bench_350m(**{"remat": True, "remat_policy": "dots",
+                         "moe_num_experts": MOE_EXPERTS,
+                         "moe_experts_per_token": MOE_TOP_K,
+                         "n_layers": MOE_LAYERS, **overrides})
 
 
 def phase_moe_train(fa, device):
-    """The MoE model trains (full width and depth, 8 experts, top-2), then
-    serves in bf16: one prefill and greedy decode steps."""
+    """The MoE model trains (full width, MOE_LAYERS layers, 8 experts,
+    top-2), then serves in bf16: one prefill and greedy decode steps."""
     import torch
 
     from ray_tpu_torch.models.generate import _decode, prefill
@@ -3204,10 +3372,10 @@ def data_images(batch):
 
 def vit_l16_forward(params, images):
     """The pool workers' ``apply_fn``: ViT-L/16 (f32 params, bf16
-    compute)."""
+    compute) at DATA_VIT_LAYERS layers."""
     from ray_tpu_torch.models import vit
 
-    return vit.forward(params, images, vit.vit_l16())
+    return vit.forward(params, images, vit.vit_l16(n_layers=DATA_VIT_LAYERS))
 
 
 class ExitOnFirstBatch:
@@ -3250,7 +3418,7 @@ def phase_data_infer(device, in_process_images_per_s):
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import BatchPredictor, Checkpoint, TorchPredictor
 
-    cfg = vit.vit_l16()
+    cfg = vit.vit_l16(n_layers=DATA_VIT_LAYERS)
     workers = min(torch.cuda.device_count(), DATA_MAX_WORKERS)
     n_rows, n_blocks = DATA_ROWS * workers, DATA_BLOCKS * workers
     block_rows = n_rows // n_blocks
@@ -4763,8 +4931,12 @@ def gpt2_train_loop(config):
     mesh, ``transformer_train_step(cfg, get_mesh(), rules=RULES_DP)``, the
     batch's rows split over the ranks by ``shard_batch``. Each step's loss
     goes to the trainer process by ``train.report``; then every rank saves the
-    state sharded, and rank 0 reports the ranks' launches, peaks and the
-    state's leaf sums with the checkpoint."""
+    state sharded, and rank 0 reports the ranks' launches, peaks, cards and
+    pids, the last loss and the state's leaf sums with the checkpoint.
+    AdamW at ``config["lr"]`` where given (tune_train), else the default
+    (the same at 3e-4)."""
+    import os
+
     import torch
     import torch.distributed as dist
 
@@ -4776,8 +4948,9 @@ def gpt2_train_loop(config):
     loop_start = time.time()
     cfg = gpt2_125m(remat=True, remat_policy="dots")
     mesh = train.get_mesh()
-    ts = train.transformer_train_step(cfg, mesh, rules=RULES_DP,
-                                      shift_inputs=True)
+    ts = train.transformer_train_step(
+        cfg, mesh, rules=RULES_DP, shift_inputs=True,
+        optimizer=AdamWAt(config["lr"]) if "lr" in config else None)
     device = ts.device
     torch.cuda.reset_peak_memory_stats(device)
     params, opt = ts.init(torch.Generator(device=device).manual_seed(
@@ -4798,17 +4971,19 @@ def gpt2_train_loop(config):
                       "step_ms": (time.perf_counter() - ts0) * 1e3})
     step_s = (time.perf_counter() - t0) / config["timed"]
     mine = {"launches": _launch_counts(fa), "rows": rows, "step_s": step_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            "card": card_identity(), "pid": os.getpid()}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     state = ts.state_tree(params, opt)
     t_save = time.perf_counter()
-    ckpt = train.Checkpoint.save_sharded(state, config["ckpt_dir"])
+    ckpt = train.Checkpoint.save_sharded(state, config.get("ckpt_dir"))
     save_s = time.perf_counter() - t_save
     sums = _leaf_sums(state, device)
     rank = train.get_context().get_world_rank()
     train.report({"ranks": ranks, "sums": sums, "save_s": save_s,
-                  "loop_start": loop_start, "world": dist.get_world_size()},
+                  "loop_start": loop_start, "world": dist.get_world_size(),
+                  "loss": float(loss)},
                  checkpoint=ckpt if rank == 0 else None)
 
 
@@ -4920,7 +5095,6 @@ def phase_train_glue(device):
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models.configs import gpt2_125m
@@ -4938,9 +5112,7 @@ def phase_train_glue(device):
 
         world = min(torch.cuda.device_count(), GLUE_MAX_WORKERS)
         cfg = gpt2_125m(remat=True, remat_policy="dots")
-        rng = np.random.default_rng(SEED)
-        tokens_np = rng.integers(0, cfg.vocab_size,
-                                 (GLUE_BATCH * world, GLUE_SEQ + 1))
+        tokens_np = glue_tokens(cfg, GLUE_BATCH * world)
         tokens = torch.from_numpy(tokens_np).to(device)
         direct, direct_s = _direct_gpt2(cfg, tokens, device)
         del tokens
@@ -4969,8 +5141,8 @@ def phase_train_glue(device):
             run_config=RunConfig(name="gpt2_dp", storage_path=root,
                                  callbacks=[rec])))
         steps = GLUE_WARM_STEPS + GLUE_TIMED_STEPS
-        losses = [r["loss"] for r in rec.reports if "loss" in r]
-        step_ms = [r["step_ms"] for r in rec.reports if "loss" in r]
+        losses = [r["loss"] for r in rec.reports if "step" in r]
+        step_ms = [r["step_ms"] for r in rec.reports if "step" in r]
         final = rec.reports[-1]
         ranks = final["ranks"]
         t0 = time.perf_counter()
@@ -5058,7 +5230,7 @@ def phase_train_glue(device):
         if failures:
             raise AssertionError("; ".join(failures))
         return ({k: sum(r["launches"][k] for r in ranks) for k in want},
-                tokens_per_card / step_s)
+                tokens_per_card / step_s, losses if world == 1 else None)
     finally:
         if tmpdir is None:
             os.environ.pop("TMPDIR")
@@ -5095,6 +5267,14 @@ def _ingest_arm(ts, params, opt, batches, steps, rows, device, arm):
     return ids, wait_s, step_s
 
 
+def ingest_cfg():
+    """data_ingest's model: train_glue's GPT-2 125M recipe (full width),
+    INGEST_LAYERS layers."""
+    from ray_tpu_torch.models.configs import gpt2_125m
+
+    return gpt2_125m(remat=True, remat_policy="dots", n_layers=INGEST_LAYERS)
+
+
 def ingest_train_loop(config):
     """data_ingest's loop, one worker a card: train_glue's GPT-2 step
     (``transformer_train_step(cfg, get_mesh(), rules=RULES_DP)``) fed by
@@ -5107,12 +5287,11 @@ def ingest_train_loop(config):
     import torch.distributed as dist
 
     from ray_tpu_torch import train
-    from ray_tpu_torch.models.configs import gpt2_125m
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import RULES_DP
     from ray_tpu_torch.parallel.sharding import named_sharding
 
-    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    cfg = ingest_cfg()
     mesh = train.get_mesh()
     ts = train.transformer_train_step(cfg, mesh, rules=RULES_DP,
                                       shift_inputs=True)
@@ -5164,12 +5343,11 @@ def _ingest_dp_steps(rank, world, device_type, batches_by_rank):
     import torch
     from torch.distributed.tensor import DTensor
 
-    from ray_tpu_torch.models.configs import gpt2_125m
     from ray_tpu_torch.parallel import RULES_DP, MeshSpec, make_mesh
     from ray_tpu_torch.parallel.sharding import named_sharding
     from ray_tpu_torch.train.step import transformer_train_step
 
-    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    cfg = ingest_cfg()
     ts = transformer_train_step(
         cfg, make_mesh(MeshSpec(data=world), device_type), rules=RULES_DP,
         shift_inputs=True)
@@ -5246,7 +5424,6 @@ def phase_data_ingest(device, glue_tokens_per_s):
     import torch
 
     import ray_tpu_torch.data as td
-    from ray_tpu_torch.models.configs import gpt2_125m
     from ray_tpu_torch.train import (RunConfig, ScalingConfig,
                                      TorchTrainer, TrainCallback)
 
@@ -5257,7 +5434,7 @@ def phase_data_ingest(device, glue_tokens_per_s):
     failures = []
     try:
         world = min(torch.cuda.device_count(), GLUE_MAX_WORKERS)
-        cfg = gpt2_125m(remat=True, remat_policy="dots")
+        cfg = ingest_cfg()
         n = world * INGEST_BATCHES * GLUE_BATCH
         tokens_np = np.random.default_rng(SEED).integers(
             0, cfg.vocab_size, (n, GLUE_SEQ + 1))
@@ -5417,6 +5594,487 @@ def phase_data_ingest(device, glue_tokens_per_s):
 def _split_threads():
     return [t.name for t in threading.enumerate()
             if t.name.startswith("rtpu-split")]
+
+
+# ------------------------------------------------------------- tune_train
+
+class AdamWAt:
+    """The default optimizer (``train/step.py``'s ``default_optimizer``:
+    AdamW, betas 0.9/0.999, eps 1e-8, no weight decay) at learning rate
+    ``lr``; picklable, so it reaches a trial or worker process."""
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def __call__(self, leaves):
+        import torch
+
+        return torch.optim.AdamW(leaves, lr=self.lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=0.0)
+
+
+def card_identity():
+    """This process's current card: the ``CUDA_VISIBLE_DEVICES`` it was
+    given and the card's UUID."""
+    import os
+
+    import torch
+
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "uuid": str(getattr(props, "uuid", ""))}
+
+
+def glue_tokens(cfg, rows):
+    """train_glue's token batch: ``rows`` rows of GLUE_SEQ + 1 tokens from
+    ``default_rng(SEED)``."""
+    import numpy as np
+
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (rows, GLUE_SEQ + 1))
+
+
+def gpt2_trial(config):
+    """tune_train's arm A, a function trainable in a trial process:
+    GPT-2 125M (train_glue's recipe: f32 params, bf16 compute, its seed
+    and tokens) on the trial's card through ``transformer_train_step``
+    with AdamW at the config's lr. An iteration is TUNE_STEPS_PER_ITER
+    steps, reported with their losses and ms, the K1/K2/K3 launches, the
+    card, the pid and the peak memory."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train.step import transformer_train_step
+
+    device = torch.device(TUNE_DEVICE)
+    torch.cuda.set_device(device)
+    cfg = gpt2_125m(remat=True, remat_policy="dots")
+    ts = transformer_train_step(cfg, device=device, shift_inputs=True,
+                                optimizer=AdamWAt(config["lr"]))
+    params, opt = ts.init(torch.Generator(device=device).manual_seed(SEED))
+    batch = {"tokens": torch.from_numpy(glue_tokens(cfg, GLUE_BATCH)).to(
+        device)}
+    card = card_identity()
+    for _ in range(TUNE_MAX_T):
+        _zero_launch_counts(fa)
+        losses, ms = [], []
+        for _ in range(TUNE_STEPS_PER_ITER):
+            t0 = time.perf_counter()
+            params, opt, loss = ts.step(params, opt, batch)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        tune.report({"loss": losses[-1], "losses": losses, "step_ms": ms,
+                     "launches": _launch_counts(fa), "card": card,
+                     "pid": os.getpid(),
+                     "peak_gib": torch.cuda.max_memory_allocated(device)
+                     / 2 ** 30})
+
+
+def __getattr__(name):
+    """``SmokePPO``, made at first use (its base, PPO, loads torch, which
+    this module's top does not): tune_train's arm C trainable, found by
+    name in a trial process."""
+    if name != "SmokePPO":
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    from ray_tpu_torch.rllib.algorithms.ppo import PPO
+    from ray_tpu_torch.rllib.env.vector_env import CnnRolloutBenchEnv
+
+    class SmokePPO(PPO):
+        """PPO on ppo_train's env (CnnRolloutBenchEnv, the Nature CNN),
+        cuDNN held to its deterministic algorithms: a trial's results are
+        held bit for bit to the same iterations in this process."""
+
+        @classmethod
+        def get_default_config(cls):
+            cfg = super().get_default_config()
+            cfg.env_creator = batched_creator(CnnRolloutBenchEnv)
+            return cfg
+
+        def setup(self, config):
+            import torch
+
+            torch.backends.cudnn.benchmark = False
+            torch.backends.cudnn.deterministic = True
+            super().setup(config)
+
+    SmokePPO.__qualname__ = "SmokePPO"
+    globals()["SmokePPO"] = SmokePPO
+    return SmokePPO
+
+
+def _alive(pid):
+    """Is process ``pid`` alive (a zombie counts as gone)?"""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _pids_left(pids, within_s=10.0):
+    """The pids still alive ``within_s`` from now (a trial's workers leave
+    when they see their trial process gone)."""
+    deadline = time.time() + within_s
+    left = [p for p in pids if _alive(p)]
+    while left and time.time() < deadline:
+        time.sleep(0.1)
+        left = [p for p in left if _alive(p)]
+    return left
+
+
+def _tune_watch():
+    """A Tune callback that keeps the results in the order the controller
+    took them, and at the end its trials and timeline."""
+    from ray_tpu_torch import tune
+
+    class Watch(tune.Callback):
+        def __init__(self):
+            self.arrivals = []
+            self.trials = []
+            self.timeline = {}
+
+        def on_trial_result(self, trial, result):
+            self.arrivals.append((trial.trial_id, dict(result)))
+
+        def on_experiment_end(self, controller):
+            self.trials = list(controller.trials)
+            self.timeline = controller.timeline
+
+    return Watch()
+
+
+def _tune_rows(watch, fit_s):
+    """Each trial's spawn, first result, iterations, median step ms and
+    peak; the fit's wall against the sum of the trials' walls, and the
+    seconds from one trial's end to the next one's start on a card."""
+    rows, by_card = [], {}
+    for t in watch.trials:
+        tl = watch.timeline.get(t.trial_id, {})
+        starts, ready, ends = tl.get("starts"), tl.get("ready"), tl.get("ends")
+        step_ms = []
+        for r in t.results:
+            v = r.get("step_ms")
+            step_ms += v if isinstance(v, list) else [v] if v else []
+        rows.append({
+            "trial_id": t.trial_id, "config": {
+                k: v for k, v in t.config.items() if k != "tokens"},
+            "status": t.status, "iterations": t.iteration,
+            "cards": tl.get("cards"), "pids": tl.get("pids"),
+            "spawn_s": ready[0] - starts[0] if ready else None,
+            "first_result_s": (tl["first_result"] - starts[0]
+                               if tl.get("first_result") else None),
+            "wall_s": ends[-1] - starts[0] if ends else None,
+            # The first step pays the trial's warm-up: left out.
+            "median_step_ms": (statistics.median(step_ms[1:])
+                               if len(step_ms) > 1 else None),
+            "peak_gib": max([r.get("peak_gib", 0.0) for r in t.results]
+                            + [0.0])})
+        for card, s, e in zip(tl.get("cards") or [], starts or [],
+                              ends or []):
+            if card is not None:
+                by_card.setdefault(card, []).append((s, e))
+    gaps = []
+    for spans in by_card.values():
+        spans.sort()
+        gaps += [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    walls = [r["wall_s"] for r in rows if r["wall_s"] is not None]
+    return {"trials": rows, "fit_s": fit_s, "trial_wall_sum_s": sum(walls),
+            "card_gaps_s": gaps}
+
+
+def _overlap(rows):
+    """Did every trial of ``rows`` run at some moment together with all
+    the others (one process each)?"""
+    spans = [(r["start"], r["end"]) for r in rows]
+    return max(s for s, _ in spans) < min(e for _, e in spans)
+
+
+def _tune_fn_arm(root, witness, per_step, cards, failures):
+    """Arm A: gpt2_trial at TUNE_LRS under ASHA, a card a trial."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.tune.experiment import Trial
+    from ray_tpu_torch.tune.schedulers import STOP
+
+    asha = dict(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                grace_period=TUNE_GRACE, reduction_factor=TUNE_RF)
+    watch = _tune_watch()
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        tune.with_resources(gpt2_trial, {"num_gpus": 1}),
+        param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            scheduler=tune.AsyncHyperBandScheduler(**asha)),
+        run_config=RunConfig(name="tune_fn", storage_path=root,
+                             callbacks=[watch])).fit()
+    fit_s = time.perf_counter() - t0
+    trials = watch.trials
+    if len(trials) != len(TUNE_LRS) or grid.errors or any(
+            t.status == "ERROR" for t in trials):
+        failures.append(f"arm A: {len(trials)} trials, errors {grid.errors}")
+    per_iter = {k: v * TUNE_STEPS_PER_ITER for k, v in per_step.items()}
+    launches = {k: 0 for k in per_step}
+    for t in trials:
+        got = [r.get("launches") for r in t.results]
+        if any(g != per_iter for g in got):
+            failures.append(f"arm A trial {t.config}: launches {got} by "
+                            f"iteration, expected {per_iter}")
+        for g in got:
+            for k in launches:
+                launches[k] += (g or {}).get(k, 0)
+    # The lr = 3e-4 trial against the same steps in this process: as many
+    # steps as both ran.
+    (t3,) = [t for t in trials if t.config["lr"] == 3e-4] or [None]
+    got = [x for r in t3.results for x in r["losses"]] if t3 else []
+    n = min(len(got), len(witness))
+    if not n or got[:n] != witness[:n]:
+        failures.append(f"arm A lr=3e-4 losses {got} against the witness "
+                        f"{witness}")
+    # ASHA replayed on the results in the order they arrived.
+    replay = tune.AsyncHyperBandScheduler(**asha)
+    stubs = {t.trial_id: Trial(config=t.config, trial_id=t.trial_id)
+             for t in trials}
+    for s in stubs.values():
+        replay.on_trial_add(s)
+    stopped_at = {}
+    for tid, r in watch.arrivals:
+        if tid in stopped_at:
+            failures.append(f"arm A trial {tid}: a result after its stop")
+        elif r.get("done") or replay.on_trial_result(stubs[tid], r) == STOP:
+            stopped_at[tid] = r["training_iteration"]
+    asha_ok = all(stopped_at.get(t.trial_id) == t.iteration for t in trials)
+    if not asha_ok:
+        failures.append(f"arm A stops {[t.iteration for t in trials]}, "
+                        f"ASHA replayed {stopped_at}")
+    best = grid.get_best_result()
+    least = min(trials, key=lambda t: t.last_result["loss"])
+    if best.config != least.config:
+        failures.append(f"arm A best {best.config}, least final loss "
+                        f"{least.config}")
+    out = _tune_rows(watch, fit_s)
+    if cards >= len(TUNE_LRS):
+        tl = watch.timeline
+        spans = [{"start": tl[t.trial_id]["starts"][0],
+                  "end": tl[t.trial_id]["ends"][-1]} for t in trials]
+        uuids = {t.results[0]["card"]["uuid"] for t in trials}
+        if not _overlap(spans) or len(uuids) != len(trials):
+            failures.append(f"arm A on {cards} cards: trials together "
+                            f"{_overlap(spans)}, cards {uuids}")
+    out.update(asha=asha, asha_replay_matches=asha_ok,
+               stopped_at={str(t.config["lr"]): t.iteration for t in trials},
+               best_lr=best.config["lr"], lr_3e4_losses=got,
+               steps_compared=n, launches=launches)
+    pids = [p for t in trials for p in watch.timeline[t.trial_id]["pids"]]
+    return out, launches, pids
+
+
+def _tune_trainer_arm(root, tokens_np, witness, glue_losses, per_step,
+                      cards, failures, device):
+    """Arm B: TorchTrainer(gpt2_train_loop) trials at TUNE_TRAINER_LRS, a
+    worker a trial."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import (CheckpointConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+
+    steps = GLUE_WARM_STEPS + GLUE_TIMED_STEPS
+    trainer = TorchTrainer(
+        gpt2_train_loop,
+        train_loop_config={"seed": SEED, "tokens": tokens_np,
+                           "warm": GLUE_WARM_STEPS,
+                           "timed": GLUE_TIMED_STEPS},
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="tune_glue", storage_path=root))
+    watch = _tune_watch()
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        trainer,
+        param_space={"train_loop_config": {
+            "lr": tune.grid_search(list(TUNE_TRAINER_LRS))}},
+        tune_config=tune.TuneConfig(metric="loss", mode="min"),
+        run_config=RunConfig(
+            name="tune_trainer", storage_path=root, callbacks=[watch],
+            checkpoint_config=CheckpointConfig(checkpoint_at_end=True))).fit()
+    fit_s = time.perf_counter() - t0
+    trials = watch.trials
+    if len(trials) != len(TUNE_TRAINER_LRS) or grid.errors:
+        failures.append(f"arm B: {len(trials)} trials, errors {grid.errors}")
+    want = {k: v * steps for k, v in per_step.items()}
+    launches = {k: 0 for k in per_step}
+    finals, pids = {}, []
+    for t in trials:
+        lr = t.config["train_loop_config"]["lr"]
+        its = [r["training_iteration"] for r in t.results[:steps + 1]]
+        if its != list(range(1, steps + 2)):
+            failures.append(f"arm B lr={lr}: iterations {its}, not the "
+                            f"loop's reports 1..{steps + 1}")
+        final = next((r for r in t.results if "ranks" in r), None)
+        if final is None:
+            failures.append(f"arm B lr={lr}: no final report")
+            continue
+        finals[lr] = final
+        (rank0,) = final["ranks"]
+        pids.append(rank0["pid"])
+        if rank0["launches"] != want:
+            failures.append(f"arm B lr={lr}: launches {rank0['launches']}, "
+                            f"expected {want}")
+        for k in launches:
+            launches[k] += rank0["launches"][k]
+    t3 = next((t for t in trials
+               if t.config["train_loop_config"]["lr"] == 3e-4), None)
+    got = [r["loss"] for r in t3.results if "step" in r][:steps] if t3 else []
+    if got != witness or (glue_losses is not None and got != glue_losses):
+        failures.append(f"arm B lr=3e-4 losses {got} against the witness "
+                        f"{witness} and train_glue's {glue_losses}")
+    best = grid.get_best_result()
+    tree = best.checkpoint.load_sharded() if best.checkpoint else None
+    sums = _leaf_sums(tree, device) if tree is not None else {}
+    del tree
+    gc_collect()
+    want_sums = finals.get(best.config["train_loop_config"]["lr"], {}).get(
+        "sums", {})
+    if not sums or sums != want_sums:
+        failures.append(f"arm B best checkpoint: {len(sums)} leaves read "
+                        f"back, {len(want_sums)} reported, equal "
+                        f"{sums == want_sums}")
+    out = _tune_rows(watch, fit_s)
+    cards_used = [f["ranks"][0]["card"] for f in finals.values()]
+    if cards >= 2:
+        tl = watch.timeline
+        spans = [{"start": tl[t.trial_id]["starts"][0],
+                  "end": tl[t.trial_id]["ends"][-1]} for t in trials]
+        if not _overlap(spans) or len({c["uuid"] for c in cards_used}) != 2:
+            failures.append(f"arm B on {cards} cards: trials together "
+                            f"{_overlap(spans)}, worker cards {cards_used}")
+    out.update(lr_3e4_losses=got, worker_cards=cards_used,
+               worker_step_ms={str(lr): f["ranks"][0]["step_s"] * 1e3
+                               for lr, f in finals.items()},
+               best_lr=best.config["train_loop_config"]["lr"],
+               checkpoint_leaves=len(sums), launches=launches)
+    pids += [p for t in trials for p in watch.timeline[t.trial_id]["pids"]]
+    return out, launches, pids
+
+
+def _tune_ppo_arm(root, failures):
+    """Arm C: SmokePPO as a Trainable, one trial on a card, against the
+    same iterations in this process."""
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    cls = getattr(sys.modules[__name__], "SmokePPO")
+    space = {"num_envs_per_env_runner": PPO_ENVS,
+             "rollout_fragment_length": PPO_FRAGMENT,
+             "train_batch_size": PPO_ENVS * PPO_FRAGMENT,
+             "minibatch_size": PPO_MINIBATCH, "num_epochs": PPO_EPOCHS,
+             "seed": SEED}
+    keys = ("total_loss", "policy_loss", "vf_loss", "entropy", "approx_kl",
+            "grad_norm", "timesteps_total", "training_iteration")
+    cudnn = torch.backends.cudnn
+    t0 = time.perf_counter()
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                     deterministic=True, allow_tf32=cudnn.allow_tf32):
+        algo = cls(dict(space))
+        try:
+            want = [algo.train() for _ in range(TUNE_PPO_ITERS)]
+        finally:
+            algo.stop()
+    in_process_s = time.perf_counter() - t0
+    gc_collect()
+    watch = _tune_watch()
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        tune.with_resources(cls, {"num_gpus": 1}), param_space=dict(space),
+        run_config=RunConfig(name="tune_ppo", storage_path=root,
+                             callbacks=[watch],
+                             stop={"training_iteration": TUNE_PPO_ITERS})
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    (trial,) = watch.trials or [None]
+    got = [{k: r[k] for k in keys} for r in trial.results] if trial else []
+    exp = [{k: r[k] for k in keys} for r in want]
+    if grid.errors or got != exp:
+        failures.append(f"arm C: errors {grid.errors}, results {got} "
+                        f"against the in-process {exp}")
+    out = _tune_rows(watch, fit_s)
+    out.update(results=got, in_process=exp, in_process_s=in_process_s,
+               checkpoint=bool(grid[0].checkpoint) if len(grid) else False)
+    pids = watch.timeline[trial.trial_id]["pids"] if trial else []
+    return out, pids
+
+
+def phase_tune_train(device, glue_losses=None):
+    """Tune (``ray_tpu_torch.tune``) on the card: each trial a process of
+    its own on the cards the controller gives it (``CUDA_VISIBLE_DEVICES``).
+    A: GPT-2 125M function trials under ASHA; B: ``TorchTrainer`` trials
+    (the trainer as a trainable); C: PPO as a Trainable. Returns the
+    K1/K2/K3 launches of A's trials and of B's workers."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.models.configs import gpt2_125m
+    from ray_tpu_torch.util import procs
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rtpu_tune_")
+    # The trials and their workers inherit it: their temporary
+    # checkpoints go with the rest.
+    tmpdir = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = root
+    failures = []
+    try:
+        cards = torch.cuda.device_count()
+        cfg = gpt2_125m(remat=True, remat_policy="dots")
+        tokens_np = glue_tokens(cfg, GLUE_BATCH)
+        witness, witness_s = _direct_gpt2(
+            cfg, torch.from_numpy(tokens_np).to(device), device)
+        gc_collect()
+        per_step = {"flash_fwd": 2 * cfg.n_layers,
+                    "flash_bwd_dq": cfg.n_layers,
+                    "flash_bwd_dkv": cfg.n_layers}
+        fn_arm, fn_launches, pids = _tune_fn_arm(root, witness, per_step,
+                                                 cards, failures)
+        gc_collect()
+        trainer_arm, trainer_launches, more = _tune_trainer_arm(
+            root, tokens_np, witness, glue_losses, per_step, cards,
+            failures, device)
+        pids += more
+        gc_collect()
+        ppo_arm, more = _tune_ppo_arm(root, failures)
+        pids += more
+        gc_collect()
+        procs.stop_fork_server()  # what the card trials forked from
+        left = _pids_left(pids)
+        if left or multiprocessing.active_children():
+            failures.append(f"processes left after tune_train: {left}, "
+                            f"{multiprocessing.active_children()}")
+        emit("tune_train", ok=not failures, failures=failures,
+             phase_s=time.perf_counter() - phase_t0, cards=cards,
+             model="gpt2_125m", n_layers=cfg.n_layers,
+             batch=GLUE_BATCH, seq=GLUE_SEQ,
+             steps_per_iteration=TUNE_STEPS_PER_ITER,
+             witness_losses=witness, witness_step_ms=witness_s * 1e3,
+             train_glue_losses=glue_losses, fn=fn_arm, trainer=trainer_arm,
+             ppo=ppo_arm, processes_checked=len(pids))
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return fn_launches, trainer_launches
+    finally:
+        if tmpdir is None:
+            os.environ.pop("TMPDIR")
+        else:
+            os.environ["TMPDIR"] = tmpdir
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def bwd_flops(B, S, H, D, causal, products):
@@ -5639,6 +6297,7 @@ def phase_kernel_time(fa, device):
 
 
 def main() -> int:
+    keep_bytecode()
     import torch
 
     if not torch.cuda.is_available():
@@ -5667,6 +6326,12 @@ def main() -> int:
         device)
     prefill_ms = phase_prefill_time(cfg, params, prompts, device)
     phase_profile(cfg, params, prompts, eng, tick_s, device)
+    # The slice's model (16 GB) leaves the card; the serve phases run
+    # SERVE_LAYERS layers, held to their own witness.
+    del cfg, params, eng, outs
+    gc_collect()
+    cfg, params, prompts, outs, eng, tick_s, prefill_ms = (
+        phase_serve_witness(device))
     serve_deploy = phase_serve_stream(cfg, prompts, outs, tick_s, prefill_ms,
                                       eng)
     serve_deploy += phase_serve_batch(cfg, params, device)
@@ -5674,7 +6339,7 @@ def main() -> int:
     serve_deploy += phase_serve_multiplex(cfg, params)
     serve_deploy += phase_serve_autoscale(cfg, prompts, outs)
     serve.shutdown()
-    # The serving model (16 GB) leaves the card before training starts.
+    # The serving model leaves the card before training starts.
     del cfg, params, eng
     gc_collect()
     train_launches, train_losses, train_step_s = phase_train(fa, device)
@@ -5702,9 +6367,11 @@ def main() -> int:
     phase_offline_train(device, sac_columns)
     phase_multi_agent_train(device)
     gc_collect()
-    glue_launches, glue_tokens_per_s = phase_train_glue(device)
+    glue_launches, glue_tokens_per_s, glue_losses = phase_train_glue(device)
     gc_collect()
     ingest_launches = phase_data_ingest(device, glue_tokens_per_s)
+    gc_collect()
+    tune_fn, tune_trainer = phase_tune_train(device, glue_losses)
     gc_collect()
     fwd_timed, bwd_timed = phase_kernel_time(fa, device)
 
@@ -5718,7 +6385,8 @@ def main() -> int:
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
                      + data_launches + glue_launches["flash_fwd"]
-                     + ingest_launches["flash_fwd"]),
+                     + ingest_launches["flash_fwd"] + tune_fn["flash_fwd"]
+                     + tune_trainer["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deploy": serve_deploy,
                              "train": train_launches["flash_fwd"],
@@ -5728,7 +6396,9 @@ def main() -> int:
                              "vit": vit_launches,
                              "data_infer": data_launches,
                              "train_glue": glue_launches["flash_fwd"],
-                             "data_ingest": ingest_launches["flash_fwd"]},
+                             "data_ingest": ingest_launches["flash_fwd"],
+                             "tune_fn": tune_fn["flash_fwd"],
+                             "tune_trainer": tune_trainer["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": fwd_timed["ms"],
         "device_ms": fwd_timed["device_ms"],
@@ -5748,12 +6418,15 @@ def main() -> int:
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + moe_launches[name]
                          + dist_launches[name] + glue_launches[name]
-                         + ingest_launches[name]),
+                         + ingest_launches[name] + tune_fn[name]
+                         + tune_trainer[name]),
             "launches_by_path": {"train": train_launches[name],
                                  "moe_train": moe_launches[name],
                                  "dist_train": dist_launches[name],
                                  "train_glue": glue_launches[name],
-                                 "data_ingest": ingest_launches[name]},
+                                 "data_ingest": ingest_launches[name],
+                                 "tune_fn": tune_fn[name],
+                                 "tune_trainer": tune_trainer[name]},
             "max_abs_err": err,
             "ms": timed["ms"],
             "device_ms": timed["device_ms"],

@@ -9,29 +9,27 @@ in this process) from an AlgorithmConfig; the env creator and the module
 and learner factories go to those processes by plain pickle
 (``ModuleFactory``, ``LearnerFactory``). ``train()`` runs
 one training_step with metric bookkeeping; checkpoints carry the learner
-state (params and optimizer). ``train``/``save``/``restore``/``stop`` have
-the meaning of the JAX package's Tune ``Trainable`` (an iteration counter
-in ``training_iteration``, a checkpoint directory with the iteration
-beside it), by duck typing: nothing of Tune is imported, and the Tune
-integration is framework glue not yet ported (ROADMAP item G).
+state (params and optimizer). ``Algorithm`` is the port's Tune
+``Trainable`` (``ray_tpu_torch.tune``), as the JAX package's is its:
+``train``/``save``/``restore``/``stop`` are Tune's (an iteration counter in
+``training_iteration``, a checkpoint directory with the iteration beside
+it), and a Tuner runs an algorithm class as trials, each built from a plain
+dict of overrides onto the default config.
 """
 from __future__ import annotations
 
 import os
 import pickle
-import tempfile
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from ..tune.trainable import Trainable
 from .algorithm_config import AlgorithmConfig
 from .core.learner_group import LearnerGroup
 from .env.env_runner_group import EnvRunnerGroup
 from .spaces import Box
-
-TRAINING_ITERATION = "training_iteration"
-_METADATA = ".tune_metadata.pkl"
 
 
 def env_spaces(creator: Callable[..., Any]) -> Tuple[Any, Any]:
@@ -92,24 +90,21 @@ class LearnerFactory:
                                 **self.kw)
 
 
-class Algorithm:
+class Algorithm(Trainable):
     config_cls = AlgorithmConfig
 
-    def __init__(self, config=None):
+    def __init__(self, config=None, **kwargs):
         if isinstance(config, AlgorithmConfig):
             self._algo_config = config
         elif isinstance(config, dict) or config is None:
-            # A plain dict of overrides onto the default config.
+            # From Tune: a plain dict of overrides onto the default config.
             base = self.get_default_config()
             for k, v in (config or {}).items():
                 setattr(base, k, v)
             self._algo_config = base
         else:
             raise TypeError(f"bad config {type(config)}")
-        self.config: Dict[str, Any] = {}
-        self._iteration = 0
-        self._start_time = time.time()
-        self.setup(self.config)
+        super().__init__(config={}, **kwargs)
 
     @classmethod
     def get_default_config(cls) -> AlgorithmConfig:
@@ -164,7 +159,7 @@ class Algorithm:
     def training_step(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    # --------------------------------------------------------------- driving
+    # ------------------------------------------------------------ Trainable
 
     def step(self) -> Dict[str, Any]:
         t0 = time.time()
@@ -178,35 +173,6 @@ class Algorithm:
         result.setdefault("episodes_total", self._episodes_total)
         result["time_this_iter_s"] = time.time() - t0
         return result
-
-    def train(self) -> Dict[str, Any]:
-        """One iteration: ``step()`` and the iteration counter."""
-        result = self.step() or {}
-        self._iteration += 1
-        result.setdefault(TRAINING_ITERATION, self._iteration)
-        result.setdefault("time_total_s", time.time() - self._start_time)
-        result.setdefault("done", False)
-        return result
-
-    def save(self, checkpoint_dir: Optional[str] = None) -> str:
-        """Write a checkpoint (into a new temporary directory if none is
-        given) with the iteration beside it; returns its directory."""
-        d = checkpoint_dir or tempfile.mkdtemp(prefix="rtpu_trial_ckpt_")
-        os.makedirs(d, exist_ok=True)
-        self.save_checkpoint(d)
-        with open(os.path.join(d, _METADATA), "wb") as f:
-            pickle.dump({"iteration": self._iteration}, f)
-        return d
-
-    def restore(self, checkpoint_path: str) -> None:
-        self.load_checkpoint(checkpoint_path)
-        meta = os.path.join(checkpoint_path, _METADATA)
-        if os.path.exists(meta):
-            with open(meta, "rb") as f:
-                self._iteration = pickle.load(f)["iteration"]
-
-    def stop(self) -> None:
-        self.cleanup()
 
     def _connect_episodes(self, episodes):
         """Apply the learner-connector pipeline on the episode-based paths

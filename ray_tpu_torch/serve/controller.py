@@ -106,24 +106,6 @@ def _replica_context():
     return ctx
 
 
-def _stop_fork_server() -> None:
-    """Stop the fork server (multiprocessing starts it on first use and
-    keeps it to the process's end), so serve leaves no process behind."""
-    from multiprocessing import forkserver
-
-    server = forkserver._forkserver
-    stop = getattr(server, "_stop", None)
-    if stop is None:
-        # A Python whose fork server has no _stop (a private method of
-        # CPython 3.8 on): the server then outlives serve; say so.
-        logger.warning(
-            "multiprocessing's fork server has no _stop on this Python: "
-            "its process (pid %s) outlives serve.shutdown()",
-            getattr(server, "_forkserver_pid", None))
-        return
-    stop()
-
-
 # This process's controller (the driver's), or, in a replica process,
 # the controller's address.
 _local: Optional["ServeController"] = None
@@ -536,7 +518,7 @@ class ServeController:
         self._pool.shutdown(wait=True, cancel_futures=True)
         core_sink.set_route()
         self.sink.stop()
-        _stop_fork_server()
+        procs.stop_fork_server()
         shutil.rmtree(self.dir, ignore_errors=True)
 
     def _drop_routes(self, name: str) -> None:

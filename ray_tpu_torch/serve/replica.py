@@ -20,7 +20,9 @@ own thread:
 - a streaming call sends its items as numbered messages, then an end or
   an error message;
 - a second thread reads the connection: a cancel message, or the caller
-  closing it, cancels the request (``context.Cancel``: its callbacks run
+  closing it, cancels the request; so does a stream's send that finds
+  the connection closed before that thread has read the close
+  (``context.Cancel``: its callbacks run
   at once, and the stream's generator is closed at its next item, so
   ``GeneratorExit`` reaches the user's ``finally``);
 - replica-level calls (``stats``, ``queue_len``, ``check_health``,
@@ -490,7 +492,15 @@ class _ReplicaServer:
                 method, args, kwargs, cancel=cancel, **meta)
             try:
                 for item in gen:
-                    if not conn.send(("item", item)) or cancel.event.is_set():
+                    if not conn.send(("item", item)):
+                        # The caller closed the connection: its cancel,
+                        # whether or not the watching thread has read the
+                        # close yet. Set here, before the generator
+                        # closes, so the cancel's callbacks find the
+                        # request still live.
+                        cancel.set()
+                        return
+                    if cancel.event.is_set():
                         return
                 conn.send(("end", None))
             finally:

@@ -3,35 +3,59 @@
 The JAX package's ``ray_tpu.train`` names: ``DataParallelTrainer`` and
 ``TorchTrainer`` (the counterpart of ``JaxTrainer``) on the port's own
 worker processes, their backends, configs, session, checkpoints,
-callbacks and predictors. ``ShardedTrainStep``/``transformer_train_step``
-load lazily, as the reference's do: a worker that runs a numpy loop needs
-no model code.
+callbacks and predictors. Every name loads with its module at first use,
+as the reference's ``ShardedTrainStep``/``transformer_train_step`` do:
+a process that needs only the configs or a dict checkpoint (a Tune trial
+running numpy, a worker running a numpy loop) never loads torch or the
+model code.
 """
-from .backend import Backend, HostCollectiveBackend, TorchBackend
-from .callbacks import (CallbackList, JsonLineLogger, ProgressPrinter,
-                        TrainCallback, TransformersCallbackAdapter)
-from .backend_executor import BackendExecutor, TrainingFailedError, TrainingIterator
-from .checkpoint import Checkpoint
-from .config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
-from .data_parallel_trainer import DataParallelTrainer, Result, TorchTrainer
-from .predictor import BatchPredictor, Predictor, TorchPredictor
-from .session import (
-    get_checkpoint,
-    get_context,
-    get_dataset_shard,
-    get_mesh,
-    report,
-)
-from .storage import CheckpointManager, StorageContext
-from .worker_group import RayTrainWorker, WorkerGroup
+import importlib
+
+_EXPORTS = {
+    "Backend": "backend",
+    "HostCollectiveBackend": "backend",
+    "TorchBackend": "backend",
+    "CallbackList": "callbacks",
+    "JsonLineLogger": "callbacks",
+    "ProgressPrinter": "callbacks",
+    "TrainCallback": "callbacks",
+    "TransformersCallbackAdapter": "callbacks",
+    "BackendExecutor": "backend_executor",
+    "TrainingFailedError": "backend_executor",
+    "TrainingIterator": "backend_executor",
+    "Checkpoint": "checkpoint",
+    "CheckpointConfig": "config",
+    "FailureConfig": "config",
+    "RunConfig": "config",
+    "ScalingConfig": "config",
+    "DataParallelTrainer": "data_parallel_trainer",
+    "Result": "data_parallel_trainer",
+    "TorchTrainer": "data_parallel_trainer",
+    "BatchPredictor": "predictor",
+    "Predictor": "predictor",
+    "TorchPredictor": "predictor",
+    "get_checkpoint": "session",
+    "get_context": "session",
+    "get_dataset_shard": "session",
+    "get_mesh": "session",
+    "report": "session",
+    "CheckpointManager": "storage",
+    "StorageContext": "storage",
+    "RayTrainWorker": "worker_group",
+    "WorkerGroup": "worker_group",
+    "ShardedTrainStep": "step",
+    "transformer_train_step": "step",
+}
+_SUBMODULES = frozenset(_EXPORTS.values())
 
 
 def __getattr__(name):
-    if name in ("ShardedTrainStep", "transformer_train_step"):
-        from . import step
-
-        return getattr(step, name)
-    raise AttributeError(name)
+    if name in _EXPORTS:
+        module = importlib.import_module(f".{_EXPORTS[name]}", __name__)
+        return getattr(module, name)
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [

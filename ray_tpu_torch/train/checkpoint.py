@@ -21,8 +21,6 @@ import uuid
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
-import torch.distributed as dist
-
 _DICT_FILE = "_dict_checkpoint.pkl"
 _METADATA_FILE = ".metadata.json"
 
@@ -87,6 +85,11 @@ class Checkpoint:
         writes only its own shards. Every rank of the process group calls
         it; without ``path`` rank 0 picks a new directory under the
         temporary directory and tells the others."""
+        # Imported here, not with the module: a process that only reads
+        # or writes dict checkpoints (a Tune trial running numpy) never
+        # loads torch.
+        import torch.distributed as dist
+
         if path is None:
             name = [os.path.join(tempfile.gettempdir(),
                                  f"rtpu_sharded_{uuid.uuid4().hex[:12]}")]
@@ -94,8 +97,6 @@ class Checkpoint:
                 dist.broadcast_object_list(name, src=0)
             path = name[0]
         dest = os.path.abspath(path)
-        # Imported here, not with the module: it pulls in DTensor, which a
-        # worker running a numpy loop never needs.
         import torch.distributed.checkpoint as dcp
 
         dcp.save(tree, checkpoint_id=os.path.join(dest, "state"))

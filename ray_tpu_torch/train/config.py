@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass
@@ -55,11 +55,15 @@ class FailureConfig:
 
 @dataclass
 class CheckpointConfig:
-    """Top-k retention ordered by a metric."""
+    """Top-k retention ordered by a metric; under Tune, a checkpoint every
+    ``checkpoint_frequency`` iterations and at the end (unset: the class
+    API's trials only)."""
 
     num_to_keep: Optional[int] = None
     checkpoint_score_attribute: Optional[str] = None
     checkpoint_score_order: str = "max"
+    checkpoint_frequency: int = 0
+    checkpoint_at_end: Optional[bool] = None
 
     def __post_init__(self) -> None:
         if self.checkpoint_score_order not in ("max", "min"):
@@ -68,13 +72,16 @@ class CheckpointConfig:
 
 @dataclass
 class RunConfig:
-    """Experiment name, storage, failure and checkpoint policy."""
+    """Experiment name, storage, failure and checkpoint policy; under Tune,
+    the stop criteria (a trial stops once a result's value reaches one)."""
 
     name: Optional[str] = None
     storage_path: Optional[str] = None
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
     callbacks: Optional[list] = None
+    stop: Optional[Dict[str, Any]] = None
+    verbose: int = 1
 
     def resolved_storage_path(self) -> str:
         return self.storage_path or os.path.expanduser("~/ray_tpu_results")

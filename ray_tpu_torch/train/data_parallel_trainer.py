@@ -10,7 +10,9 @@ port's sharded train step on it.
 
 The train loop goes to the workers by pickle, by reference: it is a
 module-level function (the reference sends closures with cloudpickle).
-``fit`` checks that before it starts any worker.
+``fit`` checks that before it starts any worker. ``as_trainable`` makes
+the trainer a Tune trainable (``ray_tpu_torch.tune``): a trial runs
+``fit()``, each rank-0 report an intermediate Tune result.
 """
 from __future__ import annotations
 
@@ -90,12 +92,15 @@ class DataParallelTrainer:
         from .callbacks import CallbackList
 
         cbs = CallbackList(self.run_config.callbacks)
+        tune_hook = getattr(self, "_tune_report_hook", None)
         report_count = [0]
 
         def on_report(item: Dict[str, Any]) -> None:
             report_count[0] += 1
             cbs.on_report(report_count[0], dict(item.get("metrics") or {}),
                           item.get("checkpoint"))
+            if tune_hook is not None:
+                tune_hook(item)
 
         iterator = TrainingIterator(
             scaling_config=self.scaling_config,
@@ -157,9 +162,11 @@ class DataParallelTrainer:
     # ------------------------------------------------------------- tune glue
 
     def as_trainable(self) -> type:
-        raise NotImplementedError(
-            "as_trainable needs the port's Tune layer, which is not ported "
-            "yet (ROADMAP item G)")
+        """Wrap into a Tune trainable class (reference:
+        base_trainer._generate_trainable_cls :693)."""
+        from ..tune.trainable import wrap_trainer_as_trainable
+
+        return wrap_trainer_as_trainable(self)
 
 
 class TorchTrainer(DataParallelTrainer):

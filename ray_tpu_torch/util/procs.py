@@ -204,6 +204,26 @@ def unspill(method: str, args: Tuple) -> Tuple:
     return tuple(a.load() if isinstance(a, Spilled) else a for a in args)
 
 
+def stop_fork_server() -> None:
+    """Stop multiprocessing's fork server (started on first use and kept
+    to the process's end), so the caller leaves no process behind."""
+    from multiprocessing import forkserver
+
+    server = forkserver._forkserver
+    stop = getattr(server, "_stop", None)
+    if stop is None:
+        # A Python whose fork server has no _stop (a private method of
+        # CPython 3.8 on): the server then outlives its users; say so.
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "multiprocessing's fork server has no _stop on this Python: "
+            "its process (pid %s) lives on",
+            getattr(server, "_forkserver_pid", None))
+        return
+    stop()
+
+
 # ------------------------------------------------------ the calling process
 
 
@@ -341,10 +361,13 @@ def serve(conn, build: Callable[[], Any],
     Then it runs ``getattr(obj, method)(*args, **kwargs)`` for each call
     in order and answers ``(seq, "ok", wrap(seq, method,
     result))`` or ``(seq, "err", traceback)``, until the calling process
-    sends None or goes away. ``io`` accumulates the seconds spent reading
-    (``recv_s``) and answering (``send_s``). The process then leaves at
-    once: the interpreter's own teardown (torch's modules, a thread left
-    behind) would only cost the calling process its join."""
+    sends None, after the call running then, or goes away, at once: no
+    one will read an answer, and a worker whose caller was killed must
+    not live on (a Tune trial's Train workers, say, whose trial process
+    was). ``io`` accumulates the seconds spent reading (``recv_s``) and
+    answering (``send_s``). The process leaves with ``os._exit``: the
+    interpreter's own teardown (torch's modules, a thread left behind)
+    would only cost the calling process its join."""
     io = io if io is not None else {}
     io.setdefault("recv_s", 0.0)
     io.setdefault("send_s", 0.0)
@@ -357,7 +380,11 @@ def serve(conn, build: Callable[[], Any],
                 t = time.perf_counter()
                 msg = pickle.loads(conn.recv_bytes())
             except (EOFError, OSError):
-                msg = None  # the calling process is gone
+                # The calling process is gone: leave now, whatever this
+                # process's main thread is running.
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(0)
             except Exception:  # noqa: BLE001 — a call with no number
                 # A call that does not unpickle here cannot be answered:
                 # the worker leaves, and its sentinel tells the caller.

@@ -71,6 +71,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "ray_tpu_torch.core." + m for m in CORE_MODULES} | {
         "ray_tpu_torch.util." + m for m in PLANE_UTIL_MODULES} <= set(
             lines["NAMES"].split())
+    assert {"ray_tpu_torch.tune." + m for m in TUNE_MODULES} | {
+        "ray_tpu_torch.util.tensorboard"} <= set(lines["NAMES"].split())
 
 
 SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
@@ -85,6 +87,10 @@ DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
 TRAIN_MODULES = ("config", "checkpoint", "storage", "session", "callbacks",
                  "worker_group", "backend", "backend_executor",
                  "data_parallel_trainer", "predictor")
+TUNE_MODULES = ("search", "search.sample", "search.searcher",
+                "search.basic_variant", "search.tpe", "experiment",
+                "schedulers", "callbacks", "trainable", "tune_controller",
+                "tuner")
 
 # Run as a file: a spawned worker runs it again as its main module, so the
 # blocks at the top hold in the worker too.
@@ -132,6 +138,58 @@ def test_train_worker_imports_without_jax_ray_tpu_or_cloudpickle(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WORKER []" in proc.stdout.splitlines(), proc.stdout
     assert "DRIVER []" in proc.stdout.splitlines(), proc.stdout
+
+
+_TRIAL_SCRIPT = r"""
+import importlib, sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from ray_tpu_torch import tune
+from ray_tpu_torch.train import RunConfig
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+def trial(config):
+    for name in config["names"]:
+        importlib.import_module(name)
+    tune.report({{"leaked": " ".join(leaked()),
+                 "torch": "torch" in sys.modules}})
+
+
+if __name__ == "__main__":
+    grid = tune.Tuner(
+        trial, param_space={{"names": {names!r}}},
+        run_config=RunConfig(name="iso", storage_path={out!r})).fit()
+    print("TRIAL", repr(grid[0].metrics["leaked"]), grid.errors)
+    print("TORCH", grid[0].metrics["torch"])
+    print("CONTROLLER", leaked())
+"""
+
+
+def test_tune_trial_process_imports_without_jax_ray_tpu_or_cloudpickle(
+        tmp_path):
+    """A Tune trial process imports every module of the Tune layer and
+    the TensorBoard writer with jax, the JAX package and cloudpickle
+    blocked, and imports none of them; running a numpy trainable, it
+    never loads torch either."""
+    names = ["ray_tpu_torch.tune." + m for m in TUNE_MODULES] + [
+        "ray_tpu_torch.util.tensorboard", "ray_tpu_torch.train.config",
+        "ray_tpu_torch.train.checkpoint"]
+    script = tmp_path / "trial_imports.py"
+    script.write_text(_TRIAL_SCRIPT.format(repo=str(REPO), names=names,
+                                           out=str(tmp_path / "out")))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TRIAL '' []" in proc.stdout.splitlines(), proc.stdout
+    assert "TORCH False" in proc.stdout.splitlines(), proc.stdout
+    assert "CONTROLLER []" in proc.stdout.splitlines(), proc.stdout
 
 
 _POOL_SCRIPT = r"""

@@ -297,3 +297,79 @@ def test_mid_stream_disconnect_frees_engine_slot(serve_instance, jref):
             cancels
     finally:
         serve.delete("disc-llm")
+
+
+def test_failed_send_records_the_cancel(tmp_path):
+    """C9: the caller closes a stream and the replica's stream thread
+    meets the closed connection on its next send before the thread that
+    watches the connection has read the close. The failed send is the
+    caller's cancel: the engine request is aborted through the cancel
+    (recorded, freed within 1 tick), not by the closed generator alone,
+    which would leave the watcher's later cancel nothing to abort and no
+    record. The watcher is held and the engine ticks one step at a time,
+    so the order is certain. Fails on the code before the fix (no cancel
+    recorded)."""
+    import multiprocessing
+    import pickle
+
+    import torch
+
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.serve import replica
+    from ray_tpu_torch.serve.llm import StreamingLLM
+
+    cfg = base.port_cfg()
+
+    def params():
+        return init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    actor = replica.ReplicaActor(
+        StreamingLLM, (cfg, params), dict(
+            name="c9-llm", max_prompt_len=8, max_new_tokens=48,
+            continuous_batching=True, num_slots=1, device="cpu"))
+    llm = actor._callable
+    engine = llm._engine
+    permits = threading.Semaphore(0)
+    real_tick = engine.tick
+
+    def gated_tick():
+        if not permits.acquire(timeout=0.01):
+            return 1  # held: the request stays live
+        return real_tick()
+
+    engine.tick = gated_tick
+    server = replica._ReplicaServer(actor, None, 1, str(tmp_path), "c9",
+                                    None)
+    watcher_go = threading.Event()
+    real_watch = server._watch
+
+    def held_watch(conn, raw, cancel):
+        watcher_go.wait(60)
+        real_watch(conn, raw, cancel)
+
+    server._watch = held_watch
+    ours, theirs = multiprocessing.Pipe()
+    ours.send_bytes(pickle.dumps(
+        ("stream", "__call__", ({"tokens": [3, 1, 4, 1, 5]},), {}, {})))
+    t = threading.Thread(target=server._handle, args=(theirs,))
+    t.start()
+    try:
+        status, item = pickle.loads(ours.recv_bytes())
+        assert status == "item" and "token" in item, (status, item)
+        ours.close()
+        permits.release()  # one tick: a token the closed pipe refuses
+        t.join(30)
+        assert not t.is_alive()
+        watcher_go.set()
+        deadline = time.time() + 10
+        while time.time() < deadline and not llm.cancels:
+            time.sleep(0.01)
+        stats = llm.serve_stats()
+        assert len(stats["cancels"]) == 1, stats
+        assert stats["cancels"][0]["ticks_until_free"] <= 1, stats
+        assert stats["slots_busy"] == 0.0, stats
+    finally:
+        watcher_go.set()
+        for _ in range(1000):
+            permits.release()
+        llm._stop.set()

@@ -28,7 +28,7 @@ if __name__ == "__main__":
     cs.emit("build", ok=True, seconds=time.perf_counter() - t0,
             cards=torch.cuda.device_count())
     print(cs.card_line(), flush=True)
-    _, glue_tokens_per_s = cs.phase_train_glue(dev)
+    _, glue_tokens_per_s, _ = cs.phase_train_glue(dev)
     cs.gc_collect()
     launches = cs.phase_data_ingest(dev, glue_tokens_per_s)
     print(f"data_ingest launches over the ranks: {launches}", flush=True)

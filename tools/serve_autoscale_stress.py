@@ -4,8 +4,8 @@ on a fresh replica, counting the connections to replicas that failed.
 
 Run from the repo root on a machine with a card: ``python3
 tools/serve_autoscale_stress.py [--passes N]`` (default 5; one card:
-about 40 s a pass after chip_smoke's ``slice``, which makes the witness).
-Each pass starts 8 streams at once on a new replica, the case where a
+about 40 s a pass after chip_smoke's ``serve_witness``, which makes the
+witness). Each pass starts 8 streams at once on a new replica, the case where a
 replica's listener meets its most concurrent connects. Every failed
 ``ReplicaClient.open`` is recorded with its cause; the script prints, per
 pass, the phase's line, the failed connects (count, the first causes) and
@@ -50,7 +50,8 @@ def main() -> int:
     torch.cuda.set_device(device)
     fa.build()
     print(chip_smoke.card_line(), flush=True)
-    cfg, _, prompts, witness, _, _, _ = chip_smoke.phase_slice(device)
+    cfg, _, prompts, witness, _, _, _ = chip_smoke.phase_serve_witness(
+        device)
     ok = 0
     try:
         for i in range(passes):

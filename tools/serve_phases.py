@@ -3,11 +3,12 @@
 
 Run from the repo root on a machine with a card: ``python3
 tools/serve_phases.py``. It builds the kernels, runs chip_smoke's
-``slice`` (the in-process engine on card 0: the witness, and the tick
-time) and ``prefill_time``, then ``serve_stream`` (with ``serve_http``,
-``serve_grpc`` and ``serve_trace`` on its replica), ``serve_batch``, ``serve_disagg``,
-``serve_multiplex`` and ``serve_autoscale`` (Llama-3-8B in bf16 on
-replica processes, one card a replica; ``serve_disagg`` needs two cards
+``serve_witness`` (the in-process engine on card 0 at the serve phases'
+depth: the witness, the tick time and the prefill times), then
+``serve_stream`` (with ``serve_http``, ``serve_grpc`` and
+``serve_trace`` on its replica), ``serve_batch``, ``serve_disagg``,
+``serve_multiplex`` and ``serve_autoscale`` (Llama-3-8B in bf16 at
+SERVE_LAYERS layers on replica processes, one card a replica; ``serve_disagg`` needs two cards
 or more, ``serve_autoscale`` drains a second replica only with two),
 each printing its JSON line, and last the replicas' K1 launches. It
 exits non-zero where a phase fails.
@@ -63,9 +64,8 @@ def main() -> int:
     torch.cuda.set_device(device)
     fa.build()
     print(chip_smoke.card_line(), flush=True)
-    cfg, params, prompts, outs, _, eng, tick_s = chip_smoke.phase_slice(
-        device)
-    prefill_ms = chip_smoke.phase_prefill_time(cfg, params, prompts, device)
+    cfg, params, prompts, outs, eng, tick_s, prefill_ms = (
+        chip_smoke.phase_serve_witness(device))
     try:
         launches = chip_smoke.phase_serve_stream(cfg, prompts, outs, tick_s,
                                                  prefill_ms, eng)
