@@ -98,7 +98,26 @@ their compiled bytecode under ``ray_tpu_torch/_build/pycache``
    no stream cut; every stream the witness's tokens). Each prints its
    replicas' spawn seconds, K1 launches (32 a prefill) and peak memory;
    on one card ``serve_disagg`` prints that it did not run.
-   ``tools/serve_phases.py`` runs them alone.
+   ``tools/serve_phases.py`` runs them alone. Then ``mpmd_pipe``: the
+   same model (SERVE_LAYERS layers) as an MPMD pipeline through the core
+   (``ray_tpu_torch.parallel.MPMDPipeline``): MPMD_STAGES (4) stage
+   processes of two layers each, forked from the fork server, on card 0
+   (``num_gpus=0``; each builds the model from the seed on the card, one
+   stage after another, keeps its layers and warms with one microbatch,
+   timed, its launch counts set to 0 after it), wired by shared-memory
+   channels, 16 microbatches of (2, 512) tokens from ``default_rng(SEED)``
+   with 4 in flight. Stage 0 embeds, the last applies the final norm and
+   the head and returns the last position's f32 logits and the greedy
+   token at every position. Checks channel mode, those logits bit for bit
+   and the tokens equal to the same four stage functions run in order in
+   this process on serve_witness's params, 2 K1 launches a stage a
+   microbatch (128) counted in the stage processes, 12 steady gaps, and
+   no stage process or channel segment left. Prints the steady gap's mean
+   and p50, each stage's ms a microbatch by phase (recv, compute, send,
+   the host copies' decode and encode), the meter's busy fractions and
+   bottleneck, the bytes a hop, each stage's spawn-to-ready seconds, cold
+   first step and peak memory. ``tools/mpmd_phases.py`` runs it alone, and the four-card
+   arm (32 layers, 8 a stage, a card a stage).
 5. ``train``: the training main path. ``bench_350m(remat=True,
    remat_policy="dots")`` at full width and depth (f32 params, bf16
    compute) through ``transformer_train_step`` with the default AdamW:
@@ -2351,6 +2370,252 @@ def phase_serve_autoscale(cfg, prompts, witness):
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
+
+
+# ------------------------------------------------------------- mpmd_pipe
+
+# The MPMD pipeline on the card: serve_cfg()'s Llama-3-8B (SERVE_LAYERS
+# layers) as MPMD_STAGES stage processes, MPMD_MICRO microbatches of
+# (MPMD_BATCH, MPMD_SEQ) tokens, MPMD_IN_FLIGHT in flight.
+MPMD_STAGES, MPMD_MICRO, MPMD_IN_FLIGHT = 4, 16, 4
+MPMD_BATCH, MPMD_SEQ = 2, 512
+
+
+class SeededParams:
+    """A params factory run in a stage process: ``cfg``'s model from
+    ``seed`` on the process's card (the same seed on a card of the same
+    kind gives the same weights; ``SeededLlama`` at another depth)."""
+
+    def __init__(self, cfg, seed=SEED):
+        self.cfg = cfg
+        self.seed = seed
+
+    def __call__(self):
+        import torch
+
+        from ray_tpu_torch.device import resolve_device
+        from ray_tpu_torch.models.transformer import init_params
+
+        dev = resolve_device(None)
+        return init_params(self.cfg,
+                           torch.Generator(device=dev).manual_seed(self.seed),
+                           dev)
+
+
+class WarmStage:
+    """A stage factory (``TransformerStage``'s) whose step, once built in
+    its stage process, runs one microbatch of the run's shape (the step's
+    cold first run: CUDA's lazy module loads, cuBLAS's start; the stages
+    warm at once, not one after another in the pipeline's fill), keeps
+    its seconds, and sets the process's kernel launch counts to 0, so
+    they count the run alone."""
+
+    def __init__(self, inner, batch, seq):
+        self.inner, self.batch, self.seq = inner, batch, seq
+
+    def __call__(self, idx, n, mesh):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        step = self.inner(idx, n, mesh)
+        if idx == 0:
+            x = torch.zeros(self.batch, self.seq, dtype=torch.long)
+        else:
+            x = torch.zeros(self.batch, self.seq, step.cfg.d_model,
+                            dtype=step.cfg.dtype, device=step.device)
+        t0 = time.perf_counter()
+        step(x)
+        cold_s = time.perf_counter() - t0
+        _zero_launch_counts(fa)
+        return WarmStep(step, cold_s)
+
+
+class WarmStep:
+    """A built stage step and its cold first run's seconds."""
+
+    def __init__(self, step, cold_s):
+        self.step, self.cold_s = step, cold_s
+
+    def __call__(self, x):
+        return self.step(x)
+
+    def cold_step_s(self):
+        return self.cold_s
+
+    def kernel_launches(self):
+        return self.step.kernel_launches()
+
+    def memory(self):
+        return self.step.memory()
+
+
+def mpmd_tokens(cfg, n):
+    """``n`` microbatches of (MPMD_BATCH, MPMD_SEQ) tokens from
+    ``default_rng(SEED)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, (MPMD_BATCH, MPMD_SEQ))
+            for _ in range(n)]
+
+
+def mpmd_run(cfg, witness_params, n_stages, n_micro, num_gpus, in_flight):
+    """``cfg`` as ``n_stages`` stage processes (``MPMDPipeline`` of
+    ``TransformerStage``: stage 0 embeds, the last applies the final norm
+    and the head and returns the last position's f32 logits and the greedy
+    token at every position), each building ``SeededParams(cfg)`` on its
+    card and keeping its layers (``num_gpus`` 0: all on card 0, built one
+    after another; 1: a card each), fed ``n_micro`` microbatches. The
+    witness: the same stage functions in order in this process on
+    ``witness_params`` (card 0), each microbatch timed (the first is
+    cold). Each stage runs one warm-up microbatch when it is built
+    (``WarmStage``: its cold first step, timed), and its launch counts
+    start at 0 after it. The stages' ms a microbatch and busy fractions
+    are the steady
+    part of the run's (``MPMDPipeline.run``), the gaps without the fill,
+    ``first_result_s`` the fill. Returns the measurements and the
+    failures (the logits bit for bit the witness's, the tokens equal, 2 K1
+    launches a stage a microbatch counted in the stage processes, the
+    steady gaps, no stage process or channel segment left)."""
+    import glob
+    import multiprocessing
+    import os
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.object_store import CHANNEL_PREFIX
+    from ray_tpu_torch.parallel import MPMDPipeline
+    from ray_tpu_torch.parallel.mpmd import TransformerStage, TransformerStep
+
+    toks = mpmd_tokens(cfg, n_micro)
+    here = os.path.dirname(os.path.abspath(__file__))
+    lock = None
+    if not num_gpus:
+        lock = os.path.join(here, "ray_tpu_torch", "_build", "mpmd.lock")
+        os.makedirs(os.path.dirname(lock), exist_ok=True)
+    factory = WarmStage(TransformerStage(cfg, SeededParams(cfg),
+                                         head="last", build_lock=lock),
+                        MPMD_BATCH, MPMD_SEQ)
+    failures = []
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.perf_counter()
+        p = MPMDPipeline([factory] * n_stages, max_in_flight=in_flight,
+                         stage_options=[{"num_gpus": num_gpus}] * n_stages)
+        ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = p.run(toks, timeout=600)
+        run_s = time.perf_counter() - t0
+        first_result_s = p.last_first_result_s
+        gaps = p.gap_stats()
+        meter = p.meter_stats()
+        p.teardown(kill_actors=False)
+        launches = [c["flash_fwd"] for c in p.call_stages("kernel_launches")]
+        memory = p.call_stages("memory")
+        cold = p.call_stages("cold_step_s")
+        pids = [s["pid"] for s in p.describe()]
+        dag_id = p._compiled.dag_id
+        mode = p.mode
+        stages = p.describe()
+        p.teardown()
+    finally:
+        rt.shutdown()
+    left = [pid for pid in pids if _alive(pid)]
+    segs = glob.glob(f"/dev/shm/{CHANNEL_PREFIX}{dag_id[:12]}*")
+    children = [c.name for c in multiprocessing.active_children()]
+    steps = [TransformerStep(cfg, witness_params, k, n_stages, head="last")
+             for k in range(n_stages)]
+    torch.cuda.synchronize()
+    witness, witness_ms = [], []
+    for t in toks:
+        t0 = time.perf_counter()
+        x = t
+        for step in steps:
+            x = step(x)  # each step ends in a synchronize
+        witness_ms.append((time.perf_counter() - t0) * 1e3)
+        witness.append(x)
+    if mode != "channels":
+        failures.append(f"mode {mode}, not channels")
+    for i, ((last, tok), (w_last, w_tok)) in enumerate(zip(outs, witness)):
+        if last.dtype != torch.float32 or last.shape != (
+                MPMD_BATCH, cfg.vocab_size):
+            failures.append(f"microbatch {i}: logits {last.dtype} "
+                            f"{tuple(last.shape)}")
+        elif not torch.equal(last, w_last.to(last.device)):
+            failures.append(
+                f"microbatch {i}: last-position logits differ from the "
+                f"witness's (max abs "
+                f"{(last - w_last.to(last.device)).abs().max().item()})")
+        if not torch.equal(tok, w_tok.to(tok.device)):
+            failures.append(f"microbatch {i}: argmax tokens differ from "
+                            "the witness's")
+    want = n_micro * (cfg.n_layers // n_stages)  # one K1 a layer
+    if launches != [want] * n_stages:
+        failures.append(f"K1 launches by stage {launches}, want {want} "
+                        f"each")
+    if gaps.get("n") != n_micro - 1 - (n_stages - 1):
+        failures.append(f"gap_stats n {gaps.get('n')}, want "
+                        f"{n_micro - 1 - (n_stages - 1)}")
+    if left or segs or children:
+        failures.append(f"left behind: stage pids {left}, segments {segs}, "
+                        f"children {children}")
+    stage_ms = meter.get("stage_ms", {})
+    edge = meter.get("edge_stats", {})
+    hop_bytes = {e: v["bytes"] / v["items"] for e, v in edge.items()
+                 if v.get("items")}
+    compute = [stage_ms.get(f"s{k}", {}).get("compute") for k in
+               range(n_stages)]
+    return {
+        "failures": failures, "mode": mode, "stages": n_stages,
+        "layers_a_stage": cfg.n_layers // n_stages, "microbatches": n_micro,
+        "microbatch": [MPMD_BATCH, MPMD_SEQ], "in_flight": in_flight,
+        "num_gpus_a_stage": num_gpus, "ready_s": ready_s, "run_s": run_s,
+        "spawn_to_ready_s": [s["spawn_s"] for s in stages],
+        "cold_step_s_by_stage": cold,
+        "gap_n": gaps.get("n"), "gap_mean_ms": gaps.get("mean_us", 0) / 1e3,
+        "gap_p50_ms": gaps.get("p50_us", 0) / 1e3,
+        "gap_max_ms": gaps.get("max_us", 0) / 1e3,
+        "stage_ms": stage_ms, "stage_busy": meter.get("stage_busy"),
+        "bottleneck": meter.get("bottleneck"),
+        "slowest_stage_compute_ms": max(c or 0 for c in compute),
+        # A stage's own work a microbatch: compute + send (recv is waiting).
+        "slowest_stage_work_ms": max(
+            (ms["compute"] + ms["send"] for ms in stage_ms.values()),
+            default=0),
+        "sum_stage_work_ms": sum(ms["compute"] + ms["send"]
+                                 for ms in stage_ms.values()),
+        "hop_bytes": hop_bytes,
+        "hop_ms_host_copies": {s: {"decode": ms["decode"],
+                                   "encode": ms["encode"]}
+                               for s, ms in stage_ms.items()},
+        "k1_launches_by_stage": launches,
+        "peak_gib_by_stage": [None if m["peak_bytes"] is None
+                              else m["peak_bytes"] / 2 ** 30
+                              for m in memory],
+        "cards_by_stage": [m["device"] for m in memory],
+        "first_result_s": first_result_s,
+        "witness_first_ms": witness_ms[0],
+        "witness_median_ms": statistics.median(witness_ms[1:] or witness_ms),
+        "logits_equal_witness": not any("logits" in f for f in failures),
+        "tokens_equal_witness": not any("tokens" in f for f in failures),
+    }
+
+
+def phase_mpmd_pipe(cfg, params):
+    """serve_cfg()'s Llama-3-8B (SERVE_LAYERS layers, bf16) as an MPMD
+    pipeline of MPMD_STAGES stage processes on card 0 (``num_gpus=0``,
+    two layers each, built one after another), held to the same stage
+    functions run in order in this process on phase_serve_witness's
+    params (``mpmd_run``). Returns the stages' K1 launches."""
+    out = mpmd_run(cfg, params, MPMD_STAGES, MPMD_MICRO, 0, MPMD_IN_FLIGHT)
+    failures = out.pop("failures")
+    emit("mpmd_pipe", ok=not failures, failures=failures,
+         model="llama3_8b", n_layers=cfg.n_layers, **out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return sum(out["k1_launches_by_stage"])
 
 
 def _launch_counts(fa):
@@ -6339,6 +6604,8 @@ def main() -> int:
     serve_deploy += phase_serve_multiplex(cfg, params)
     serve_deploy += phase_serve_autoscale(cfg, prompts, outs)
     serve.shutdown()
+    gc_collect()
+    mpmd_launches = phase_mpmd_pipe(cfg, params)
     # The serving model leaves the card before training starts.
     del cfg, params, eng
     gc_collect()
@@ -6380,7 +6647,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
-        "launches": (serve_launches + serve_deploy
+        "launches": (serve_launches + serve_deploy + mpmd_launches
                      + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
@@ -6389,6 +6656,7 @@ def main() -> int:
                      + tune_trainer["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deploy": serve_deploy,
+                             "mpmd_pipe": mpmd_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,

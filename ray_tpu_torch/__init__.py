@@ -9,3 +9,23 @@ hand-written Hopper kernel under ``ops/csrc/``, built at first use into
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+# The core's API (``core/api.py``), loaded at first use: importing the
+# package stays cheap, and a process that never calls it loads none of it.
+_CORE_API = ("init", "shutdown", "is_initialized", "remote", "get", "put",
+             "wait", "kill", "get_actor", "cluster_resources", "method",
+             "exit_actor", "ActorClass", "ActorHandle", "RemoteFunction",
+             "RayTpuError", "TaskError", "GetTimeoutError", "ActorDiedError",
+             "WorkerCrashedError")
+
+
+def __getattr__(name):
+    if name in _CORE_API:
+        from .core import api
+
+        return getattr(api, name)
+    if name == "ObjectRef":
+        from .core.serialization import ObjectRef
+
+        return ObjectRef
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -8,20 +8,48 @@ lexicographic order of a listing is the order of the records. A write
 goes to a temporary file that is renamed over the final name, so a
 reader sees a whole record or none, also after the writer was killed;
 each write prunes the older records of its id. The data layer's ingest
-cursors and streaming-split journals ride on it. The actor-record format
-of the JAX module (``encode``/``decode``, cloudpickled instances) has no
-user in the port and is not ported; callers pickle their own blobs with
-plain ``pickle``.
+cursors and streaming-split journals ride on it, and so do the core's
+actor checkpoints (``core/worker.py``).
+
+An actor checkpoint (:func:`encode`/:func:`decode`, the JAX module's
+``:43-64``) is one record of the live instance, its exactly-once call
+journal and a monotonic epoch. The port pickles it by plain pickle, not
+cloudpickle: the instance's class goes by reference, and an instance
+that defines ``__getstate__`` decides what is kept (an MPMD stage keeps
+what it was built from, not its weights: ``parallel/mpmd.py``).
 """
 from __future__ import annotations
 
 import os
+import pickle
 import tempfile
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .. import flags
 
+RECORD_VERSION = 1
 _SUFFIX = ".ckpt"
+
+
+def encode(instance: Any, journal: Dict[str, Any], epoch: int) -> bytes:
+    """One actor checkpoint record: instance, exactly-once journal and
+    epoch."""
+    from . import serialization
+
+    return serialization.dumps({"v": RECORD_VERSION, "epoch": int(epoch),
+                                "instance": instance, "journal": journal})
+
+
+def decode(blob: bytes) -> Dict[str, Any]:
+    """The record of a blob; a blob that holds a bare instance (no record)
+    decodes to an epoch-0 record with an empty journal."""
+    obj = pickle.loads(blob)
+    if (isinstance(obj, dict) and obj.get("v") == RECORD_VERSION
+            and "instance" in obj):
+        obj.setdefault("journal", {})
+        obj.setdefault("epoch", 0)
+        return obj
+    return {"v": 0, "epoch": 0, "instance": obj, "journal": {}}
 
 
 def checkpoint_dir() -> str:

@@ -18,7 +18,9 @@ stderr. Three pieces:
   serve controller's sink where this process has a route to one, else
   to the process's own. A batch that never left is put back.
 
-The serve engine's STREAM_STALLED event goes through :func:`emit`.
+The serve engine's STREAM_STALLED event goes through :func:`emit`, and
+so do the compiled DAG's DAG_PARTICIPANT_DIED, DAG_RECOVERING,
+DAG_RECOVERED and DAG_RECOVERY_FAILED (``dag/compiled_dag.py``).
 Everything is gated on ``RTPU_EVENTS``: when off, emit sites pay one flag
 check and nothing is stored or shipped. No thread starts at import; a
 forked child starts with an empty buffer and no flusher.

@@ -59,10 +59,65 @@ _define("RTPU_DATA_PROGRESS_S", float, 5.0,
         "RTPU_DATA_PROGRESS is on.")
 _define("RTPU_CHECKPOINT_DIR", str, None,
         "Directory for host-local checkpoint files: the data layer's "
-        "ingest cursors and streaming-split handout journals (default: "
-        "rtpu_checkpoints under the system temp root). Shared by every "
-        "process on the host, so a restarted driver or consumer resumes "
-        "from the records its predecessor wrote.")
+        "ingest cursors and streaming-split handout journals, and the "
+        "core's actor checkpoints (default: rtpu_checkpoints under the "
+        "system temp root). Shared by every process on the host, so a "
+        "restarted driver, consumer or actor resumes from the records its "
+        "predecessor wrote.")
+
+# -- actor checkpoints / exactly-once replay ---------------------------------
+_define("RTPU_ACTOR_CHECKPOINT", bool, True,
+        "Durable actor checkpoints: actors created with "
+        "checkpoint_interval_s / checkpoint_every_n write their instance "
+        "and their exactly-once call journal to the host-local record "
+        "store, so a crash restart restores the newest checkpoint instead "
+        "of running the constructor again. 0 turns the subsystem off: a "
+        "restart runs the constructor.")
+_define("RTPU_CHECKPOINT_TICK_S", float, 0.25,
+        "How often an idle actor process with checkpoint_interval_s looks "
+        "whether a checkpoint is due (a busy one looks after each call).")
+
+# -- compiled DAG channels ---------------------------------------------------
+_define("RTPU_DAG_CHANNELS", bool, True,
+        "Compiled DAGs execute over reusable mutable channels: one shm "
+        "slot ring per DAG edge and a resident loop on each actor process, "
+        "so a steady-state execute() is a slot write and at most one "
+        "doorbell. 0 falls back to one actor call per stage and execute() "
+        "through the normal submit path.")
+_define("RTPU_DAG_SLOT_BYTES", int, 128 * 1024,
+        "Payload capacity of one shm channel slot. A value that pickles "
+        "larger goes through a one-off sidecar shm segment named in the "
+        "slot; size it to the common payload so the sidecar stays cold.")
+_define("RTPU_DAG_SPIN_US", int, 200,
+        "How long a channel reader or writer spins on the ring header "
+        "before it arms its doorbell and blocks; 0 blocks at once (right "
+        "for a host with fewer cores than processes).")
+_define("RTPU_DAG_STALL_S", float, 2.0,
+        "How long a compiled DAG's driver tolerates no progress with work "
+        "outstanding before it probes its participants (their processes "
+        "and resident loops). A slow stage that is alive is waited for; a "
+        "dead one is recovered or, without recovery, tears the DAG down "
+        "with DAGTeardownError.")
+_define("RTPU_DAG_RECOVERY", bool, True,
+        "Compiled DAGs heal in place: when the stall probe finds a dead "
+        "stage process with restarts left, the driver quiesces the "
+        "survivors, waits for the actor's restart (from its newest "
+        "checkpoint where one is configured), rebuilds only the affected "
+        "edges under a bumped ring epoch and replays the retained items "
+        "from what each reader last applied, so every microbatch is "
+        "delivered once. A stage with no restarts left still raises "
+        "DAGTeardownError; 0 tears the DAG down at any death.")
+_define("RTPU_DAG_RECOVERY_TIMEOUT_S", float, 60.0,
+        "How long a recovering DAG waits for a dead stage's actor to come "
+        "back before it tears down with DAGTeardownError.")
+_define("RTPU_DAG_METER", bool, True,
+        "Channel meter: every slot ring carries writer and reader counter "
+        "lines (items, bytes, blocked and starved ns) and every resident "
+        "stage accounts its recv, compute and send time in a shared block, "
+        "which the driver samples into rtpu_dag_edge_* / rtpu_dag_stage_* "
+        "metrics and the list_compiled_dags() row (busy fractions, the "
+        "bottleneck). 0 removes the counters and clock reads from the hot "
+        "path.")
 
 
 # -- serve: deadlines, admission control, circuit breaking -------------------

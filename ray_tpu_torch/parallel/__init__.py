@@ -4,8 +4,9 @@ The counterpart of the JAX package's ``parallel/``: DP, FSDP and TP
 expressed as DTensor placements over a named ``DeviceMesh``, from the same
 logical-axis rule tables, and the GPipe pipeline over ``pipe``
 (``pipeline.py``), and host collectives with a group object between
-processes (``collectives.py``). The actor-based ``MPMDPipeline`` is
-framework glue (ROADMAP item G).
+processes (``collectives.py``). ``MPMDPipeline`` (``mpmd.py``) runs a
+pipeline as stage actors, a process each, wired by compiled-DAG channels;
+it and ``StageFactory`` load at first use.
 """
 from .mesh import (
     AXIS_ORDER,
@@ -28,7 +29,19 @@ from .sharding import (
     tree_shardings,
 )
 
+
+
+def __getattr__(name):
+    if name in ("MPMDPipeline", "StageFactory"):
+        from . import mpmd
+
+        return getattr(mpmd, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "MPMDPipeline",
+    "StageFactory",
     "AXIS_ORDER",
     "MeshSpec",
     "MeshBootstrap",

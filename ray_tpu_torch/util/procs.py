@@ -1,10 +1,12 @@
-"""Spawned worker processes: the core that the Train layer's workers and
-the data layer's pool workers share.
+"""Worker processes: the core that the Train layer's workers, the data
+layer's pool workers, RLlib's actors, Tune's trials and the core's actors
+and task workers (``core/worker.py``) share.
 
-Both are processes of one host started with ``multiprocessing``'s spawn
-method (CUDA cannot be used in a forked child), one card each where they
-run on the card, called over a pipe with numbered pickled messages and
-watched through their sentinels:
+Each is a process of one host, spawned by ``multiprocessing`` or forked
+from its fork server (a fresh process that never touches CUDA: a forked
+child of a process that did cannot use it), one card each where it runs
+on the card, called over a pipe with numbered pickled messages and
+watched through its sentinel:
 
 - the calling process holds a :class:`Worker` for each: it sends
   ``(seq, method, args, kwargs)`` and :func:`wait` reads the replies
@@ -16,6 +18,10 @@ watched through their sentinels:
   worker receives its next call while it runs one;
 - :func:`stop` asks a set of workers to leave and makes sure none is
   left;
+- a call that must hold the worker's one call thread past its own answer
+  (a compiled DAG's resident loop) answers itself through the worker's
+  :class:`Mailbox` and takes the calls meant for it from there, while the
+  others wait in order;
 - large arrays leave the pipe: a call's argument or result wrapped in a
   :class:`Spilled` travels as a file, the pipe carrying its name
   (:func:`unspill` reads the arguments back on the worker's side). Through
@@ -30,6 +36,7 @@ it.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import multiprocessing.connection as mpc
 import os
@@ -162,10 +169,13 @@ class Spilled:
     ``tensors``, CPU tensors go out of band too (as numpy views: without
     their autograd state, each its own contiguous copy)."""
 
-    def __init__(self, path: str, obj: Any, tensors: bool = False):
-        bufs: List[pickle.PickleBuffer] = []
-        self.meta = _dumps_oob(obj, bufs, tensors)
-        raws = [b.raw() for b in bufs]
+    def __init__(self, path: str, obj: Any, tensors: bool = False,
+                 _parts: Optional[Tuple[bytes, List[memoryview]]] = None):
+        if _parts is None:
+            bufs: List[pickle.PickleBuffer] = []
+            meta = _dumps_oob(obj, bufs, tensors)
+            _parts = meta, [b.raw() for b in bufs]
+        self.meta, raws = _parts
         self.sizes = [r.nbytes for r in raws]
         self.path = path
         with open(path, "wb", buffering=0) as f:
@@ -345,12 +355,69 @@ def stop(workers: Iterable[Worker]) -> None:
 
 # ---------------------------------------------------------- the worker side
 
+# What a call returns that answered itself through its :class:`Mailbox`:
+# :func:`serve` sends no second answer.
+ANSWERED = object()
+
+
+class Mailbox:
+    """The calls a worker process has received and not yet run, for a call
+    that holds the process's one call thread past its own answer (a
+    compiled DAG's resident loop, ``dag/resident.py``): it answers its own
+    call early (:meth:`answer`), takes the calls meant for it while it
+    runs (:meth:`take`), and leaves every other call, in order, to
+    :func:`serve`, which runs them once it returns."""
+
+    def __init__(self, inbox: "queue.Queue[Any]",
+                 answer: Callable[[int, str, Any], None]):
+        self._inbox = inbox
+        self._answer = answer
+        self.deferred: "collections.deque" = collections.deque()
+        self.seq = 0  # the number of the call running now
+        self.leaving = False  # the caller asked this process to leave
+
+    def answer(self, seq: int, status: str, value: Any) -> None:
+        self._answer(seq, status, value)
+
+    def take(self, match: Callable[[Tuple], bool], timeout: float = 0.0
+             ) -> Optional[Tuple[int, str, Tuple, Dict[str, Any]]]:
+        """The first waiting call ``(seq, method, args, kwargs)`` that
+        ``match`` takes, waiting up to ``timeout`` seconds for one; None
+        where none came. The calls passed over stay queued for
+        :func:`serve`."""
+        for i, msg in enumerate(self.deferred):
+            if msg is not None and match(msg):
+                del self.deferred[i]
+                return msg
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                msg = self._inbox.get(
+                    timeout=max(0.0, deadline - time.monotonic())) \
+                    if timeout > 0 else self._inbox.get_nowait()
+            except queue.Empty:
+                return None
+            if msg is not None and match(msg):
+                return msg
+            if msg is None:
+                self.leaving = True
+            self.deferred.append(msg)
+
+    def _next(self, timeout: Optional[float]) -> Any:
+        if self.deferred:
+            return self.deferred.popleft()
+        return self._inbox.get(timeout=timeout)
+
 
 def serve(conn, build: Callable[[], Any],
           ready: Optional[Dict[str, Any]] = None,
           load: Optional[Callable[[str, Tuple], Tuple]] = None,
           wrap: Optional[Callable[[int, str, Any], Any]] = None,
-          io: Optional[Dict[str, float]] = None) -> None:
+          io: Optional[Dict[str, float]] = None,
+          dumps: Callable[[Any], bytes] = pickle.dumps,
+          on_mailbox: Optional[Callable[[Mailbox], None]] = None,
+          idle: Optional[Callable[[], None]] = None,
+          idle_s: float = 0.25) -> None:
     """A worker process's loop, to the end of the process.
 
     A reader thread takes the calls off ``conn`` (``load(method, args)``
@@ -365,13 +432,18 @@ def serve(conn, build: Callable[[], Any],
     one will read an answer, and a worker whose caller was killed must
     not live on (a Tune trial's Train workers, say, whose trial process
     was). ``io`` accumulates the seconds spent reading (``recv_s``) and
-    answering (``send_s``). The process leaves with ``os._exit``: the
+    answering (``send_s``); ``dumps`` pickles the answers. Where
+    ``on_mailbox`` is given it receives the process's :class:`Mailbox`
+    once the object is built: a call that returns :data:`ANSWERED`
+    answered itself through it. ``idle()`` runs between calls, at most
+    every ``idle_s`` seconds, and so when calls stop. The process leaves with ``os._exit``: the
     interpreter's own teardown (torch's modules, a thread left behind)
     would only cost the calling process its join."""
     io = io if io is not None else {}
     io.setdefault("recv_s", 0.0)
     io.setdefault("send_s", 0.0)
     inbox: "queue.Queue[Any]" = queue.Queue()
+    send_lock = threading.Lock()
 
     def read() -> None:
         while True:
@@ -405,12 +477,14 @@ def serve(conn, build: Callable[[], Any],
     def answer(seq: int, status: str, value: Any) -> None:
         t = time.perf_counter()
         try:
-            data = pickle.dumps((seq, status, value))
+            data = dumps((seq, status, value))
         except Exception:  # noqa: BLE001 — a result that cannot travel
             data = pickle.dumps((seq, "err", traceback.format_exc()))
-        conn.send_bytes(data)
+        with send_lock:
+            conn.send_bytes(data)
         io["send_s"] += time.perf_counter() - t
 
+    mailbox = Mailbox(inbox, answer)
     threading.Thread(target=read, name="worker-reader", daemon=True).start()
     try:
         t = time.perf_counter()
@@ -420,19 +494,31 @@ def serve(conn, build: Callable[[], Any],
             answer(0, "err", traceback.format_exc())
             obj = None
         if obj is not None:
+            if on_mailbox is not None:
+                on_mailbox(mailbox)
             answer(0, "ready", {**(ready or {}), "pid": os.getpid(),
                                 "init_s": time.perf_counter() - t,
                                 "t_ready": time.time()})
+        last_idle = time.monotonic()
         while obj is not None:
-            msg = inbox.get()
+            if idle is not None and time.monotonic() - last_idle >= idle_s:
+                idle()
+                last_idle = time.monotonic()
+            try:
+                msg = mailbox._next(idle_s if idle is not None else None)
+            except queue.Empty:
+                continue
             if msg is None:
                 break
             seq, method, args, kwargs = msg
             if method is None:  # its arguments did not load
                 answer(seq, "err", args)
                 continue
+            mailbox.seq = seq
             try:
                 value = getattr(obj, method)(*args, **kwargs)
+                if value is ANSWERED:
+                    continue
                 if wrap is not None:
                     t = time.perf_counter()
                     value = wrap(seq, method, value)

@@ -5,8 +5,10 @@ and ``query_metrics``, ``:121-137``, ``:275-282``).
 
 Each reads the serve controller this process reaches: its own (the
 process that called ``serve.run``), or the one whose address it inherited
-(a replica). The rest of the JAX module reads its cluster controller's
-tables (tasks, actors, nodes, logs), which the port does not have.
+(a replica). ``list_compiled_dags`` (``:45``) reads the driver's compiled
+DAG rows (``dag/meter.py``). The rest of the JAX module reads its cluster
+controller's tables (tasks, actors, nodes, logs), which the port does not
+have.
 """
 from __future__ import annotations
 
@@ -109,3 +111,15 @@ def waterfall(spans) -> List[Dict[str, Any]]:
     for s in roots:
         walk(s, 0)
     return out
+
+
+def list_compiled_dags() -> List[Dict[str, Any]]:
+    """The live compiled DAGs of this driver: each one's stages, edges and
+    depth, its recoveries (count, last cause, last seconds) and, once the
+    meter has sampled twice, the stages' busy fractions (``stage_busy``),
+    the edges' counters (``edge_stats``), steps a second and the
+    ``bottleneck`` (``dag/meter.py``)."""
+    from ..dag import meter
+
+    meter.sample_now()
+    return meter.rows()

@@ -73,13 +73,17 @@ def test_package_imports_without_jax_or_ray_tpu():
             lines["NAMES"].split())
     assert {"ray_tpu_torch.tune." + m for m in TUNE_MODULES} | {
         "ray_tpu_torch.util.tensorboard"} <= set(lines["NAMES"].split())
+    assert {"ray_tpu_torch.dag." + m for m in DAG_MODULES} | {
+        "ray_tpu_torch.parallel.mpmd"} <= set(lines["NAMES"].split())
 
 
 SERVE_MODULES = ("context", "admission", "batching", "deployment", "replica",
                  "controller", "handle", "api", "llm", "prefix_cache",
                  "disagg", "llm_engine", "proxy", "grpc_proxy", "autoscaler",
                  "multiplex", "trace")
-CORE_MODULES = ("telemetry", "events", "sink", "checkpoint")
+CORE_MODULES = ("telemetry", "events", "sink", "checkpoint", "ids",
+                "context", "serialization", "object_store", "worker", "api")
+DAG_MODULES = ("dag_node", "channels", "resident", "compiled_dag", "meter")
 PLANE_UTIL_MODULES = ("metrics", "tracing", "state")
 DATA_MODULES = ("context", "block", "datasource", "logical", "read_api",
                 "executor", "dataset", "iterator", "preprocessors", "grouped",
@@ -777,3 +781,156 @@ def test_serve_shutdown_stops_the_metrics_endpoint():
     t = time.monotonic()
     assert metrics.flush_metrics() is True
     assert time.monotonic() - t < 2.0
+
+
+# Run as a file: a task worker and a spawned actor run it again as their
+# main module (the blocks at its top hold there too); a stage process
+# forks from the fork server, which imports only the stage's preload.
+_CORE_SCRIPT = r"""
+import importlib, sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import ray_tpu_torch as rt
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+def imports(names):
+    for name in names:
+        importlib.import_module(name)
+    return leaked(), "torch" in sys.modules
+
+
+@rt.remote
+def task(names):
+    return imports(names)
+
+
+@rt.remote
+class CpuActor:
+    def probe(self, names):
+        return imports(names)
+
+
+class Probe:
+    def __call__(self, x):
+        return x
+
+    def probe(self):
+        return leaked()
+
+
+class ProbeFactory:
+    def __call__(self, idx, n, mesh):
+        return Probe()
+
+
+if __name__ == "__main__":
+    from ray_tpu_torch.parallel import MPMDPipeline
+
+    rt.init(num_cpus=2)
+    try:
+        print("TASK", rt.get(task.remote({core!r})))
+        a = CpuActor.remote()
+        print("ACTOR", rt.get(a.probe.remote({core!r})))
+        p = MPMDPipeline([ProbeFactory()] * 2, recovery=False)
+        print("RUN", p.run([1, 2]))
+        p.teardown(kill_actors=False)
+        print("STAGES", p.call_stages("probe"))
+        p.teardown()
+    finally:
+        rt.shutdown()
+    print("DRIVER", leaked())
+"""
+
+
+def test_core_processes_import_without_jax_or_ray_tpu(tmp_path):
+    """A task worker and a CPU actor import the core and the DAG layer
+    with jax, the JAX package and cloudpickle blocked, import none of
+    them and never load torch; an MPMD stage process (which loads torch)
+    and the driver import none of them either."""
+    core = ["ray_tpu_torch.core." + m for m in CORE_MODULES
+            if m not in ("telemetry", "sink")] + [
+        "ray_tpu_torch.dag." + m for m in DAG_MODULES]
+    script = tmp_path / "core_imports.py"
+    script.write_text(_CORE_SCRIPT.format(repo=str(REPO), core=core))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=180, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert "TASK ([], False)" in lines, proc.stdout
+    assert "ACTOR ([], False)" in lines, proc.stdout
+    assert "RUN [1, 2]" in lines, proc.stdout
+    assert "STAGES [[], []]" in lines, proc.stdout
+    assert "DRIVER []" in lines, proc.stdout
+
+
+class _Factory:
+    def __call__(self, idx, n, mesh):
+        return lambda x: x
+
+
+@pytest.fixture
+def core():
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
+
+
+def _actors():
+    from ray_tpu_torch.core import api
+
+    return len(api.runtime().actors)
+
+
+def test_mpmd_refuses_before_any_spawn(core, monkeypatch):
+    """A nested factory, a mesh_spec over more than one card and stages
+    that ask cards on a host without CUDA raise before any stage process
+    starts."""
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.parallel import MPMDPipeline
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    def nested_factory(idx, n, mesh):
+        return lambda x: x
+
+    with pytest.raises(TypeError, match="nested_factory"):
+        MPMDPipeline([_Factory(), nested_factory])
+    with pytest.raises(ValueError, match="spans 2 cards"):
+        MPMDPipeline([_Factory(), _Factory()],
+                     mesh_specs=[None, MeshSpec(fsdp=2)])
+    monkeypatch.setattr(api.runtime(), "_num_gpus", 0)
+    with pytest.raises(RuntimeError, match="cards"):
+        MPMDPipeline([_Factory()] * 2,
+                     stage_options=[{"num_gpus": 1}] * 2)
+    assert _actors() == 0
+
+
+def test_handles_refused_before_any_send(core):
+    """An ActorHandle or an ObjectRef sent to another process raises
+    TypeError in the driver, saying that this waits for the next slice;
+    so does a nested remote class, naming itself."""
+    import ray_tpu_torch as rt
+
+    class Nested:
+        pass
+
+    with pytest.raises(TypeError, match="Nested"):
+        rt.remote(Nested).remote()
+    assert _actors() == 0
+    with pytest.raises(TypeError, match="next slice"):
+        rt.remote(_Factory).remote(rt.put(1))
+    with pytest.raises(TypeError, match="next slice"):
+        import pickle
+
+        pickle.dumps(rt.put(1))
+

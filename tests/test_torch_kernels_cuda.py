@@ -273,3 +273,21 @@ def test_device_batch_stream_stops_when_dropped():
     stream.close()
     assert not any(t.name == "device-prefetch" and t.is_alive()
                    for t in threading.enumerate())
+
+
+def test_cuda_tensor_travels_as_host_copy():
+    """The core's serialization (``core/serialization.py``): a CUDA tensor
+    pickles as its host copy (no card in the bytes) and comes back on the
+    receiving process's own card, here the current one, bit for bit."""
+    import pickle
+
+    from ray_tpu_torch.core import serialization as ser
+
+    dev = _card()
+    t = torch.randn(4, 8, device=dev).to(torch.bfloat16)
+    data = ser.dumps({"x": t, "f": t.float()})
+    assert b"cuda" not in data
+    back = pickle.loads(data)
+    assert back["x"].device == torch.device("cuda",
+                                            torch.cuda.current_device())
+    assert torch.equal(back["x"], t) and torch.equal(back["f"], t.float())
