@@ -117,7 +117,25 @@ their compiled bytecode under ``ray_tpu_torch/_build/pycache``
    the host copies' decode and encode), the meter's busy fractions and
    bottleneck, the bytes a hop, each stage's spawn-to-ready seconds, cold
    first step and peak memory. ``tools/mpmd_phases.py`` runs it alone, and the four-card
-   arm (32 layers, 8 a stage, a card a stage).
+   arm (32 layers, 8 a stage, a card a stage). Then ``workflow_llm``: the
+   same model (SERVE_LAYERS layers) on ``LlamaWorker`` actors of the core
+   (a card each, ``num_gpus=1``; the witness's engine inside), through
+   the workflow layer and the util shims, the slice's 6 prompts: a
+   child driver (a new process) runs a durable workflow of a generate
+   step a prompt, is SIGKILLed after 3 checkpoints, and this process
+   resumes it (held: the child's actor gone within 10 s, RESUMABLE within
+   LIVENESS_S + 5 s, the witness's tokens bit for bit, each step
+   checkpointed before the kill run once and every other at most twice,
+   the resumed actor's K1 launches 8 a step it ran); an ``ActorPool`` of
+   a LlamaWorker a card (map in order and map_unordered as a set, the
+   witness's tokens, 8 K1 launches a prompt); a ``Queue(maxsize=4)`` sent
+   into the pool's actor, which puts the 2048-token prompt's tokens as
+   they come while this process sleeps 0.5 s (the witness's row in
+   order, the producer found the queue full); then no process, core
+   directory or workflow directory left. Prints each arm's wall, the
+   child's spawn to its first checkpoint, kill to RESUMABLE, each
+   generate's ms in the actor beside the in-process engine's and the
+   queue's gap between tokens beside the decode tick.
 5. ``train``: the training main path. ``bench_350m(remat=True,
    remat_policy="dots")`` at full width and depth (f32 params, bf16
    compute) through ``transformer_train_step`` with the default AdamW:
@@ -2616,6 +2634,418 @@ def phase_mpmd_pipe(cfg, params):
     if failures:
         raise AssertionError("; ".join(failures))
     return sum(out["k1_launches_by_stage"])
+
+
+# ------------------------------------------------------------ workflow_llm
+
+WF_ACTOR = "workflow-llm"  # the workflow's actor, by name in its driver
+WF_ID = "workflow-llm"
+WF_KILL_AFTER = 3  # checkpointed generate steps before the driver's kill
+WF_QUEUE_MAX = 4
+WF_QUEUE_SLEEP_S = 0.5
+
+# The child driver of workflow_llm's first arm: a new process that imports
+# this file by its module name (so the stored DAG names chip_smoke.X, not
+# __main__.X), starts a core and runs the workflow, until it is killed.
+_WF_CHILD = r"""
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+
+if __name__ == "__main__":
+    sys.exit(chip_smoke.workflow_child({store!r}, {prompts!r}, {marker!r},
+                                       {gpus!r}))
+"""
+
+
+class LlamaWorker:
+    """workflow_llm's actor (one card, ``num_gpus=1``): serve_cfg()'s
+    Llama-3-8B from SeededLlama on its card behind a
+    ContinuousBatchingEngine of the witness's NUM_SLOTS, MAX_PROMPT,
+    MAX_NEW and SEED, ticking on a thread of its own."""
+
+    def __init__(self, marker=None):
+        from ray_tpu_torch.device import resolve_device
+        from ray_tpu_torch.serve.llm_engine import ContinuousBatchingEngine
+
+        self.marker = marker
+        dev = resolve_device(None)
+        self.eng = ContinuousBatchingEngine(
+            serve_cfg(), SeededLlama()(), num_slots=NUM_SLOTS,
+            max_prompt_len=MAX_PROMPT, max_new_tokens=MAX_NEW, seed=SEED,
+            model="llama3_8b", device=dev)
+        self.stop = threading.Event()
+        threading.Thread(target=self.eng.run_forever, args=(self.stop,),
+                         daemon=True).start()
+        self.generate_ms = []
+        self.blocked_puts = 0
+
+    def generate(self, i, prompt):
+        """Append ``(i, pid)`` to the marker file, then the prompt's greedy
+        tokens."""
+        import os
+
+        if self.marker is not None:
+            with open(self.marker, "a") as f:
+                f.write(f"{i} {os.getpid()}\n")
+        t0 = time.perf_counter()
+        out = self.eng.result(self.eng.submit(prompt, timeout=600),
+                              timeout=600)
+        self.generate_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def stream(self, prompt, q):
+        """Put each token into the queue ``q`` as the engine makes it,
+        counting the puts that found ``q`` full; the count of tokens."""
+        from ray_tpu_torch.util.queue import Full
+
+        req = self.eng.submit(prompt, timeout=600)
+        sent = 0
+        while True:
+            done = self.eng.is_done(req)
+            toks = self.eng.peek(req)
+            for tok in toks[sent:]:
+                try:
+                    q.put_nowait(tok)
+                except Full:
+                    self.blocked_puts += 1
+                    q.put(tok, timeout=120)
+                sent += 1
+            if done and sent == len(toks):
+                self.eng.pop_result(req)
+                return sent
+            time.sleep(0.001)
+
+    def launches(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        return _launch_counts(fa)["flash_fwd"]
+
+    def stats(self):
+        import os
+
+        return {"pid": os.getpid(), "generate_ms": list(self.generate_ms),
+                "blocked_puts": self.blocked_puts}
+
+
+def collect_tokens(*outs):
+    """workflow_llm's last step, a CPU task: the generate steps' tokens."""
+    return list(outs)
+
+
+def workflow_dag(prompts, marker):
+    """collect_tokens over a generate step a prompt, on one LlamaWorker
+    (named WF_ACTOR in its driver's core), by chip_smoke's module names."""
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+
+    w = rt.remote(cs.LlamaWorker).options(num_gpus=1, name=WF_ACTOR).bind(
+        marker)
+    return rt.remote(cs.collect_tokens).bind(
+        *[w.generate.bind(i, p) for i, p in enumerate(prompts)])
+
+
+def workflow_child(store, prompts_path, marker, gpus):
+    """The child driver: a core of ``gpus`` cards (told, so that this
+    process never imports torch), the workflow, run to its end (or until
+    workflow_llm kills this process)."""
+    keep_bytecode()
+    import ray_tpu_torch as rt
+
+    with open(prompts_path) as f:
+        prompts = json.load(f)
+    rt.init(num_cpus=2, num_gpus=gpus)
+    try:
+        rt.workflow.run(workflow_dag(prompts, marker), workflow_id=WF_ID,
+                        storage=store)
+    finally:
+        rt.shutdown()
+    return 0
+
+
+def _wf_steps(store, prefix="generate."):
+    """The ids of the SUCCESSFUL steps of workflow_llm's run."""
+    import os
+
+    d = os.path.join(store, WF_ID, "steps")
+    done = set()
+    for name in os.listdir(d) if os.path.isdir(d) else ():
+        if name.startswith(prefix) and name.endswith(".json"):
+            try:
+                with open(os.path.join(d, name)) as f:
+                    if json.load(f)["state"] == "SUCCESSFUL":
+                        done.add(name[:-5])
+            except (OSError, ValueError):
+                pass  # a write in flight
+    return done
+
+
+def _marker_runs(marker):
+    """{step index: [pid, ...]} from the marker file."""
+    runs = {}
+    with open(marker) as f:
+        for line in f.read().splitlines():
+            i, pid = line.split()
+            runs.setdefault(int(i), []).append(int(pid))
+    return runs
+
+
+def _engine_generate_ms(eng, prompt):
+    """One prompt alone through the in-process engine (its ticker on a
+    thread for the call), ms."""
+    stop = threading.Event()
+    ticker = threading.Thread(target=eng.run_forever, args=(stop,),
+                              daemon=True)
+    ticker.start()
+    try:
+        t0 = time.perf_counter()
+        eng.result(eng.submit(prompt, timeout=600), timeout=600)
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        stop.set()
+        ticker.join(timeout=60)
+
+
+def phase_workflow_llm(cfg, prompts, witness, tick_s, eng):
+    """serve_cfg()'s Llama-3-8B through the workflow layer and the util
+    shims on the card (LlamaWorker actors, one card each):
+
+    1. ``wf_resume``: a child driver (a new process) runs a workflow of a
+       generate step a prompt on one LlamaWorker and collect_tokens, and
+       is SIGKILLed once WF_KILL_AFTER generate steps are checkpointed;
+       held: its actor gone within 10 s, RESUMABLE within LIVENESS_S + 5
+       s, ``workflow.resume`` here returning the witness's tokens, each
+       step checkpointed before the kill run once (the marker file) and
+       every other at most twice, SUCCESSFUL after, the resumed actor's K1
+       launches 8 a generate it ran;
+    2. ``pool_map``: ActorPool over a LlamaWorker a card: map equal to the
+       witness's tokens in order, map_unordered the same set, 8 K1
+       launches a prompt;
+    3. ``queue_stream``: a Queue(maxsize=WF_QUEUE_MAX) sent into the pool's
+       actor, which puts the 2048-token prompt's tokens as they come while
+       this process sleeps WF_QUEUE_SLEEP_S and then takes them: the
+       witness's row in order, 64 from the call, the producer found the
+       queue full at least once.
+
+    Then no actor or task process, no core directory and no workflow
+    directory left. Returns the K1 launches counted in the actors."""
+    import glob
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.util import ActorPool, Queue
+    from ray_tpu_torch.workflow.storage import WorkflowStorage
+
+    failures = []
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    td = tempfile.mkdtemp(prefix="wf-llm-")
+    store, marker = os.path.join(td, "store"), os.path.join(td, "marker")
+    child_tmp = os.path.join(td, "tmp")  # the killed driver's core dir
+    os.makedirs(child_tmp)
+    prompts_path = os.path.join(td, "prompts.json")
+    with open(prompts_path, "w") as f:
+        json.dump(prompts, f)
+    cores_before = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                              "rtpt-core-*")))
+    out = {"n_prompts": len(prompts), "new_tokens": MAX_NEW}
+    pids = []
+    # Arm 1: the child driver, killed after WF_KILL_AFTER checkpoints.
+    t0 = time.perf_counter()
+    script = os.path.join(td, "child.py")
+    with open(script, "w") as f:
+        f.write(_WF_CHILD.format(root=here, store=store,
+                                 prompts=prompts_path, marker=marker,
+                                 gpus=torch.cuda.device_count()))
+    log = open(os.path.join(td, "child.log"), "w")
+    child = subprocess.Popen([sys.executable, script], cwd=here,
+                             stdout=log, stderr=subprocess.STDOUT,
+                             env={**os.environ, "TMPDIR": child_tmp})
+    first_ckpt_s = None
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            done = _wf_steps(store)
+            if done and first_ckpt_s is None:
+                first_ckpt_s = time.perf_counter() - t0
+            if len(done) >= WF_KILL_AFTER:
+                break
+            if child.poll() is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+        t_kill = time.perf_counter()
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(timeout=30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        log.close()
+    killed_with = sorted(_wf_steps(store))
+    if len(killed_with) < WF_KILL_AFTER or len(killed_with) >= len(prompts):
+        with open(os.path.join(td, "child.log")) as f:
+            tail = f.read()[-2000:]
+        failures.append(f"wf_resume: the kill found {killed_with} "
+                        f"checkpointed (exit {child.returncode}): {tail}")
+    runs = _marker_runs(marker) if os.path.exists(marker) else {}
+    child_pids = sorted({p for ps in runs.values() for p in ps})
+    left = _pids_left(child_pids, within_s=10.0)
+    if left:
+        failures.append(f"wf_resume: the child's actor {left} outlived it")
+    rt.init(num_cpus=4)
+    try:
+        limit = WorkflowStorage.LIVENESS_S + 5.0
+        deadline = time.monotonic() + limit
+        status = workflow.get_status(WF_ID, storage=store)
+        while status != "RESUMABLE" and time.monotonic() < deadline:
+            time.sleep(0.1)
+            status = workflow.get_status(WF_ID, storage=store)
+        kill_to_resumable_s = time.perf_counter() - t_kill
+        if status != "RESUMABLE":
+            failures.append(f"wf_resume: status {status} {limit} s after "
+                            "the kill, not RESUMABLE")
+        t1 = time.perf_counter()
+        resumed = workflow.resume(WF_ID, storage=store)
+        resume_s = time.perf_counter() - t1
+        if resumed != witness:
+            failures.append("wf_resume: the resumed tokens differ from the "
+                            "witness's")
+        status = workflow.get_status(WF_ID, storage=store)
+        if status != "SUCCESSFUL":
+            failures.append(f"wf_resume: status {status} after resume")
+        runs = _marker_runs(marker)
+        for i in range(len(prompts)):
+            n = len(runs.get(i, []))
+            if f"generate.{i}" in killed_with and n != 1:
+                failures.append(f"wf_resume: checkpointed step {i} ran "
+                                f"{n} times")
+            elif not 1 <= n <= 2:
+                failures.append(f"wf_resume: step {i} ran {n} times")
+        w = rt.get_actor(WF_ACTOR)
+        wstats = rt.get(w.stats.remote(), timeout=60)
+        pids.append(wstats["pid"])
+        ran_here = sum(pid == wstats["pid"] for ps in runs.values()
+                       for pid in ps)
+        resumed_launches = rt.get(w.launches.remote(), timeout=60)
+        if resumed_launches != cfg.n_layers * ran_here:
+            failures.append(f"wf_resume: the resumed actor's K1 launches "
+                            f"{resumed_launches}, want {cfg.n_layers} x "
+                            f"{ran_here} steps")
+        rt.kill(w)
+        out["wf_resume"] = {
+            "wall_s": time.perf_counter() - t0,
+            "spawn_to_first_checkpoint_s": first_ckpt_s,
+            "checkpointed_at_kill": killed_with,
+            "kill_to_resumable_s": kill_to_resumable_s,
+            "liveness_s": WorkflowStorage.LIVENESS_S,
+            "resume_s": resume_s, "steps_run_by_resumed_actor": ran_here,
+            "runs_by_step": {i: len(p) for i, p in sorted(runs.items())},
+            "generate_ms_resumed_actor": wstats["generate_ms"],
+            "k1_launches_resumed_actor": resumed_launches,
+            "tokens_equal_witness": resumed == witness}
+
+        # Arm 2: an ActorPool of a LlamaWorker a card.
+        t2 = time.perf_counter()
+        n_cards = rt.cluster_resources()["GPU"]
+        actors = [rt.remote(cs.LlamaWorker).options(num_gpus=1).remote()
+                  for _ in range(int(n_cards))]
+        pool = ActorPool(actors)
+        t_map = time.perf_counter()
+        mapped = list(pool.map(lambda a, v: a.generate.remote(*v),
+                               enumerate(prompts)))
+        map_s = time.perf_counter() - t_map
+        t_map = time.perf_counter()
+        unordered = list(pool.map_unordered(
+            lambda a, v: a.generate.remote(*v), enumerate(prompts)))
+        unordered_s = time.perf_counter() - t_map
+        if mapped != witness:
+            failures.append("pool_map: map's tokens differ from the "
+                            "witness's")
+        if sorted(unordered) != sorted(witness):
+            failures.append("pool_map: map_unordered's tokens are not the "
+                            "witness's set")
+        pool_launches = sum(rt.get([a.launches.remote() for a in actors],
+                                   timeout=60))
+        if pool_launches != cfg.n_layers * 2 * len(prompts):
+            failures.append(f"pool_map: K1 launches {pool_launches}, want "
+                            f"{cfg.n_layers} a prompt")
+        astats = rt.get([a.stats.remote() for a in actors], timeout=60)
+        pids += [s["pid"] for s in astats]
+        out["pool_map"] = {
+            "cards": int(n_cards), "wall_s": time.perf_counter() - t2,
+            "map_s": map_s, "map_unordered_s": unordered_s,
+            "generate_ms_in_actor": [s["generate_ms"] for s in astats],
+            "k1_launches": pool_launches,
+            "tokens_equal_witness": mapped == witness}
+
+        # Arm 3: a Queue filled token by token by the pool's actor.
+        t3 = time.perf_counter()
+        a = actors[0]
+        before = rt.get(a.launches.remote(), timeout=60)
+        q = Queue(maxsize=WF_QUEUE_MAX)
+        assert q.qsize() == 0  # its actor is up before the stream starts
+        ref = a.stream.remote(prompts[4], q)
+        time.sleep(WF_QUEUE_SLEEP_S)
+        got, stamps = [], []
+        for _ in range(MAX_NEW):
+            got.append(q.get(timeout=60))
+            stamps.append(time.perf_counter())
+        n_sent = rt.get(ref, timeout=120)
+        blocked = rt.get(a.stats.remote(), timeout=60)["blocked_puts"]
+        stream_launches = rt.get(a.launches.remote(), timeout=60) - before
+        if got != witness[4]:
+            failures.append("queue_stream: the tokens differ from the "
+                            "witness's 2048-token row")
+        if n_sent != MAX_NEW:
+            failures.append(f"queue_stream: the call sent {n_sent}, want "
+                            f"{MAX_NEW}")
+        if blocked < 1:
+            failures.append("queue_stream: the producer never found the "
+                            "queue full")
+        if stream_launches != cfg.n_layers:
+            failures.append(f"queue_stream: K1 launches {stream_launches}, "
+                            f"want {cfg.n_layers}")
+        gaps = [(b - a_) * 1e3 for a_, b in zip(stamps, stamps[1:])]
+        steady = gaps[len(gaps) // 2:]
+        out["queue_stream"] = {
+            "wall_s": time.perf_counter() - t3, "tokens": len(got),
+            "blocked_puts": blocked, "k1_launches": stream_launches,
+            "gap_ms_median_all": statistics.median(gaps),
+            "gap_ms_median_second_half": statistics.median(steady),
+            "gap_ms_max": max(gaps),
+            "tokens_equal_witness": got == witness[4]}
+        q.shutdown()
+        pool_launches += stream_launches
+    finally:
+        rt.shutdown()
+    # The in-process engine on the shortest and the longest prompt alone.
+    out["generate_ms_in_process"] = {
+        PROMPT_LENS[i]: _engine_generate_ms(eng, prompts[i]) for i in (0, 4)}
+    out["decode_tick_ms_4_slots"] = tick_s * 1e3
+    left = _pids_left(pids, within_s=10.0)
+    children = [c.name for c in __import__("multiprocessing")
+                .active_children() if c.name.startswith("rtpt-")]
+    cores_after = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                             "rtpt-core-*")))
+    shutil.rmtree(td, ignore_errors=True)
+    if left or children or (cores_after - cores_before) or os.path.exists(
+            td):
+        failures.append(f"left behind: pids {left}, children {children}, "
+                        f"core dirs {sorted(cores_after - cores_before)}, "
+                        f"workflow dir {os.path.exists(td)}")
+    emit("workflow_llm", ok=not failures, failures=failures,
+         model="llama3_8b", n_layers=cfg.n_layers,
+         phase_s=time.perf_counter() - t_phase, **out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return resumed_launches + pool_launches
 
 
 def _launch_counts(fa):
@@ -6606,6 +7036,8 @@ def main() -> int:
     serve.shutdown()
     gc_collect()
     mpmd_launches = phase_mpmd_pipe(cfg, params)
+    gc_collect()
+    workflow_launches = phase_workflow_llm(cfg, prompts, outs, tick_s, eng)
     # The serving model leaves the card before training starts.
     del cfg, params, eng
     gc_collect()
@@ -6648,7 +7080,7 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
         "launches": (serve_launches + serve_deploy + mpmd_launches
-                     + train_launches["flash_fwd"]
+                     + workflow_launches + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
                      + data_launches + glue_launches["flash_fwd"]
@@ -6657,6 +7089,7 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches,
                              "serve_deploy": serve_deploy,
                              "mpmd_pipe": mpmd_launches,
+                             "workflow_llm": workflow_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,

@@ -10,8 +10,9 @@ hand-written Hopper kernel under ``ops/csrc/``, built at first use into
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-# The core's API (``core/api.py``), loaded at first use: importing the
-# package stays cheap, and a process that never calls it loads none of it.
+# The core's API (``core/api.py``) and ``workflow``, loaded at first use:
+# importing the package stays cheap, and a process that never calls them
+# loads none of them.
 _CORE_API = ("init", "shutdown", "is_initialized", "remote", "get", "put",
              "wait", "kill", "get_actor", "cluster_resources", "method",
              "exit_actor", "ActorClass", "ActorHandle", "RemoteFunction",
@@ -28,4 +29,8 @@ def __getattr__(name):
         from .core.serialization import ObjectRef
 
         return ObjectRef
+    if name == "workflow":
+        import importlib
+
+        return importlib.import_module(".workflow", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

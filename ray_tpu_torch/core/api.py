@@ -28,13 +28,31 @@ Cards: ``num_gpus`` is 0 or 1, as everywhere in the port; an actor or
 task that asks 1 takes a card of its own (``procs.take_card``) and raises
 before any spawn where there is no CUDA or no free card.
 
-Divergences by design (this slice): one host; handles and refs stay in
-the driver, so passing an ``ActorHandle`` or an ``ObjectRef`` to another
-process, nested in an argument, and submitting a task from a task or an
-actor raise ``TypeError`` (``serialization.HANDLES_STAY``); functions,
-classes and arguments go by plain pickle, by reference, so a nested
-class or function, a closure or a lambda raises ``TypeError`` naming
-itself before any spawn.
+The driver is the owner of every object and the server of its children
+(the JAX package's ownership sidecar and controller, on one host). An
+``ObjectRef`` or an ``ActorHandle`` passes into a task or an actor, at
+the top of an argument or nested in one, and arrives as a ref or a
+handle (``serialization.py``); a task worker or an actor process then
+talks to the driver through a :class:`_Client` over the pipe it already
+has: it submits tasks and actor calls, creates actors, puts, gets,
+waits, looks up and kills actors, and the driver's reader answers on
+the same pipe. A ref the driver sent to a process pins its object until
+the process drops its last copy or exits. A task blocked in ``get`` or
+``wait`` gives its CPUs back while it waits (the JAX package's
+``_with_block_notify``), so ``init(num_cpus=1)`` runs a task that waits
+on a task. Task options ``max_retries`` (a task whose worker died runs
+again, up to n times) and ``retry_exceptions`` (an error the task raised
+is retried too) are the JAX package's; ``catch_exceptions`` is carried
+for workflows (``workflow/executor.py``) and not acted on here. An actor
+with ``async def`` methods runs every call on one event loop of its own
+(``core/worker.py``), up to ``max_concurrency`` (default 100) at once.
+
+Divergences by design (this slice): one host; functions, classes and
+arguments go by plain pickle, by reference, so a nested class or
+function, a closure or a lambda raises ``TypeError`` naming itself
+before any spawn; ``max_concurrency`` above 1 on an actor without async
+methods raises before any spawn (the JAX package runs its sync calls on
+that many mailbox threads).
 """
 from __future__ import annotations
 
@@ -45,6 +63,7 @@ import multiprocessing
 import multiprocessing.connection as mpc
 import os
 import pickle
+import queue
 import shutil
 import tempfile
 import threading
@@ -59,14 +78,15 @@ from . import context as ctx
 from . import serialization
 from . import worker as core_worker
 from .ids import ActorID, ObjectID
-from .serialization import HANDLES_STAY, ObjectRef
+from .serialization import ObjectRef
 
 logger = logging.getLogger(__name__)
 
-TASK_OPTIONS = ("num_cpus", "num_gpus", "num_returns", "name")
+TASK_OPTIONS = ("num_cpus", "num_gpus", "num_returns", "name",
+                "max_retries", "retry_exceptions", "catch_exceptions")
 ACTOR_OPTIONS = ("num_cpus", "num_gpus", "name", "max_restarts",
                  "max_task_retries", "checkpoint_interval_s",
-                 "checkpoint_every_n", "_preload")
+                 "checkpoint_every_n", "max_concurrency", "_preload")
 # Seconds an actor that is being killed or retired gets to leave.
 _STOP_S = 5.0
 
@@ -98,6 +118,9 @@ class TaskError(RayTpuError):
         self.cause = cause
         self.traceback_str = traceback_str
 
+    def __reduce__(self):
+        return TaskError, (self.label, self.cause, self.traceback_str)
+
 
 # ------------------------------------------------------------ the runtime
 
@@ -112,10 +135,22 @@ class _Proc(procs.Worker):
         self.card = card
         self.lock = threading.Lock()
         self.calls: Dict[int, "_Call"] = {}  # sent, not answered
+        # Refs this process borrows: object id -> the times the driver
+        # sent it, less those the process said it released.
+        self.borrows: Dict[str, int] = {}
 
     def send(self, method, args=(), kwargs=None) -> int:
         with self.lock:
             return super().send(method, args, kwargs)
+
+    def answer(self, rid: int, status: str, value: Any) -> None:
+        """Answer the process's request ``rid``."""
+        data = self.encode(("down", rid, status, value))
+        with self.lock:
+            try:
+                self.conn.send_bytes(data)
+            except OSError:
+                pass  # gone: its sentinel reports the death
 
 
 class _Call:
@@ -124,7 +159,7 @@ class _Call:
 
     __slots__ = ("kind", "label", "fn", "method", "args", "kwargs", "oids",
                  "num_returns", "key", "cpus", "card_ask", "seq", "proc",
-                 "reply")
+                 "reply", "retries", "retry_exceptions", "blocked")
 
     def __init__(self, kind, label, args, kwargs, oids, num_returns):
         self.kind = kind  # "task" | "actor" | "control"
@@ -141,6 +176,24 @@ class _Call:
         self.seq: Optional[int] = None
         self.proc: Optional[_Proc] = None
         self.reply: Optional[Tuple[str, Any]] = None
+        self.retries = 0  # runs left after a worker death (max_retries)
+        self.retry_exceptions = False
+        self.blocked = 0  # its worker's gets and waits not yet answered
+
+
+class _UpWait:
+    """A child's ``get`` or ``wait`` that the driver answers once its
+    objects are ready or its deadline passed."""
+
+    __slots__ = ("proc", "rid", "oids", "num", "deadline", "kind", "call")
+
+    def __init__(self, proc, rid, oids, num, deadline, kind, call):
+        self.proc, self.rid, self.oids, self.num = proc, rid, oids, num
+        self.deadline, self.kind, self.call = deadline, kind, call
+
+
+# A request handler's value that says it answers later.
+_LATER = object()
 
 
 class _Actor:
@@ -164,6 +217,9 @@ class _Actor:
         self.pending: deque = deque()  # calls not sent yet, in order
         self.next_key = itertools.count()
         self.spawn_s: List[float] = []  # each incarnation's spawn-to-ready
+        # Refs in the constructor's arguments: held while the actor can
+        # restart, borrowed by each incarnation's process.
+        self.payload_refs: List[str] = []
 
 
 class _Runtime:
@@ -172,7 +228,11 @@ class _Runtime:
         self._num_gpus = num_gpus
         self.cv = threading.Condition()
         self.objects: Dict[str, Tuple[str, Any]] = {}
-        self.waiting: set = set()  # oids not settled whose ref lives
+        # Object id -> its holders: the driver's live refs to it, each
+        # process that borrows it, each actor whose arguments carry it.
+        # An object whose holders are gone is dropped.
+        self.holds: Dict[str, int] = {}
+        self.upwaits: List[_UpWait] = []  # children's gets and waits
         self.tasks: deque = deque()  # tasks not sent yet
         self.idle: Dict[Optional[int], List[_Proc]] = {}
         self.task_procs: List[_Proc] = []
@@ -215,20 +275,62 @@ class _Runtime:
     # ----------------------------------------------------------- objects
 
     def new_ref(self) -> ObjectRef:
-        ref = ObjectRef(ObjectID.generate())
-        self.waiting.add(ref.object_id)
-        weakref.finalize(ref, self._release, ref.object_id)
+        return self.adopt(ObjectID.generate())
+
+    def adopt(self, oid: str) -> ObjectRef:
+        """A ref of the driver to ``oid``: a new one, or one that arrived
+        from a child (``serialization._rebuild_ref``)."""
+        ref = ObjectRef(oid)
+        with self.cv:
+            self._hold(oid)
+        weakref.finalize(ref, self._unhold, oid)
         return ref
 
-    def _release(self, oid: str) -> None:
+    def _hold(self, oid: str) -> None:
+        self.holds[oid] = self.holds.get(oid, 0) + 1
+
+    def _unhold(self, oid: str) -> None:
         with self.cv:
+            left = self.holds.get(oid, 0) - 1
+            if left > 0:
+                self.holds[oid] = left
+                return
+            self.holds.pop(oid, None)
             self.objects.pop(oid, None)
-            self.waiting.discard(oid)
+
+    def _borrow(self, p: _Proc, oids: Iterable[str]) -> None:
+        """``p`` was sent these refs (called with ``cv`` held)."""
+        for oid in oids:
+            n = p.borrows.get(oid, 0)
+            if n == 0:
+                self._hold(oid)
+            p.borrows[oid] = n + 1
+
+    def _give_back(self, p: _Proc, counts: Dict[str, int]) -> None:
+        """``p`` dropped its last copy of these refs, received ``n`` times
+        each; ``counts`` None: all of them (its process ended)."""
+        for oid, n in (dict(p.borrows) if counts is None
+                       else counts).items():
+            left = p.borrows.get(oid, 0) - n
+            if left > 0:
+                p.borrows[oid] = left
+            elif oid in p.borrows:
+                del p.borrows[oid]
+                self._unhold(oid)
+
+    def _post(self, p: _Proc, send: Callable[[], Any]) -> Any:
+        """``send()`` a message to ``p``; the refs it carried become
+        ``p``'s borrows once it is sent (called with ``cv`` held)."""
+        with serialization.capture() as refs:
+            out = send()
+        self._borrow(p, refs)
+        return out
 
     def _settle(self, oid: str, status: str, value: Any) -> None:
-        if oid in self.waiting:  # else its ref is gone: drop the value
-            self.waiting.discard(oid)
-            self.objects[oid] = (status, value)
+        if oid in self.holds:  # else its refs are gone: drop the value
+            self.objects[oid] = status, value
+            if self.upwaits:
+                self._wake()
 
     def _settle_all(self, call: _Call, status: str, value: Any) -> None:
         for oid in call.oids:
@@ -253,11 +355,26 @@ class _Runtime:
     def put(self, value: Any) -> ObjectRef:
         bufs: list = []
         data = serialization.dumps(value, bufs)
-        copy = serialization.loads(data, [b.raw() for b in bufs])
+        return self._store(serialization.loads(data,
+                                               [b.raw() for b in bufs]))
+
+    def _store(self, value: Any) -> ObjectRef:
+        """A new object holding ``value`` itself."""
         with self.cv:
             ref = self.new_ref()
-            self._settle(ref.object_id, "ok", copy)
+            self._settle(ref.object_id, "ok", value)
         return ref
+
+    def get_objects(self, oids: Sequence[str], timeout: Optional[float]
+                    ) -> List[Tuple[str, Any]]:
+        """Each object's ``(status, value)``, waiting up to ``timeout``."""
+        n = len(set(oids))
+        done = self.wait_objects(oids, n, timeout)
+        if len(done) < n:
+            raise GetTimeoutError(f"{n - len(done)} of {n} objects not "
+                                  f"ready within {timeout} s")
+        with self.cv:
+            return [self.objects[o] for o in oids]
 
     def wait_objects(self, oids: Sequence[str], num: int,
                      timeout: Optional[float]) -> List[str]:
@@ -285,6 +402,8 @@ class _Runtime:
             call.fn = fn
             call.cpus = float(opts.get("num_cpus", 1) or 0)
             call.card_ask = int(opts.get("num_gpus", 0) or 0)
+            call.retries = int(opts.get("max_retries", 0) or 0)
+            call.retry_exceptions = bool(opts.get("retry_exceptions"))
             if call.cpus > self.num_cpus:
                 raise ValueError(f"{label} asks num_cpus={call.cpus}, more "
                                  f"than the {self.num_cpus} of this core")
@@ -354,10 +473,13 @@ class _Runtime:
         self.cv.notify_all()
 
     def _send(self, p: _Proc, call: _Call, method: str, head: Tuple) -> None:
-        try:
+        def send():
             args, kwargs = self._resolved(call)
+            return p.send(method, head + args, kwargs)
+
+        try:
             call.proc = p
-            call.seq = p.send(method, head + args, kwargs)
+            call.seq = self._post(p, send)
         except Exception as e:  # noqa: BLE001 — the call's error
             self._finish(call, "err", TaskError(call.label, e))
             return
@@ -376,10 +498,12 @@ class _Runtime:
             raise ValueError(f"{label}: num_gpus={gpus}; an actor takes 0 "
                              "or 1 card")
         _check_sendable(list(args) + list(kwargs.values()), label)
-        payload = core_worker.actor_payload(wrapper, args, kwargs,
-                                            where="actor's process")
+        with serialization.capture() as refs:
+            payload = core_worker.actor_payload(wrapper, args, kwargs,
+                                                where="actor's process")
         actor_id = ActorID.generate()
         a = _Actor(actor_id, cls, payload, opts, methods)
+        a.payload_refs = refs
         with self.cv:
             if a.name is not None and a.name in self.names:
                 raise ValueError(f"an actor named {a.name!r} exists")
@@ -392,6 +516,8 @@ class _Runtime:
             if gpus:
                 a.card = self._take_card(label)
             self.cpus_used += a.cpus
+            for oid in set(refs):
+                self._hold(oid)
             self.actors[actor_id] = a
             if a.name is not None:
                 self.names[a.name] = actor_id
@@ -407,13 +533,14 @@ class _Runtime:
             context = multiprocessing.get_context("spawn")
         opts = {k: a.opts.get(k) for k in (
             "max_task_retries", "checkpoint_every_n",
-            "checkpoint_interval_s")}
+            "checkpoint_interval_s", "max_concurrency")}
         a.incarnation += 1
         a.proc = _Proc(context, core_worker._core_actor_main,
                        (a.payload, a.actor_id, a.card, opts, restore,
                         self.spill_dir, dict(os.environ)),
                        f"rtpt-actor-{a.cls.__name__}-{a.actor_id[:8]}",
                        a.card)
+        self._borrow(a.proc, a.payload_refs)
         a.state = "starting"
         self._wake()
 
@@ -466,9 +593,9 @@ class _Runtime:
             call = _Call("control", f"{a.cls.__qualname__} {method}", args,
                          {}, [], 1)
             if a.state in ("starting", "alive"):
-                call.proc = a.proc
-                call.seq = a.proc.send(method, args)
-                a.proc.calls[call.seq] = call
+                p = call.proc = a.proc
+                call.seq = self._post(p, lambda: p.send(method, args))
+                p.calls[call.seq] = call
             else:
                 call.reply = ("err", f"the actor is {a.state}")
         return call
@@ -511,7 +638,9 @@ class _Runtime:
             with self.cv:
                 self.cv.wait(0.05)
 
-    def kill(self, actor_id: str) -> None:
+    def kill(self, actor_id: str, wait: bool = True) -> None:
+        """Kill the actor's process; with ``wait``, until the reader has
+        reaped it (the reader itself kills without waiting)."""
         with self.cv:
             a = self.actors.get(actor_id)
             if a is None or a.state == "dead":
@@ -523,6 +652,8 @@ class _Runtime:
                 self._fail_actor_calls(a)
                 return
             p.proc.kill()
+            if not wait:
+                return
             # The reader reaps the process and fails its calls.
             deadline = time.monotonic() + _STOP_S
             while a.proc is p and time.monotonic() < deadline:
@@ -544,6 +675,9 @@ class _Runtime:
             a.card = None
         self.cpus_used -= a.cpus
         a.cpus = 0.0
+        refs, a.payload_refs = a.payload_refs, []
+        for oid in set(refs):
+            self._unhold(oid)
 
     # ------------------------------------------------------ the reader
 
@@ -562,11 +696,17 @@ class _Runtime:
         while not self._stopped:
             with self.cv:
                 live = self._live()
+                deadlines = [w.deadline for w in self.upwaits
+                             if w.deadline is not None]
             by_conn = {p.conn: p for p in live}
             by_sentinel = {p.proc.sentinel: p for p in live}
+            timeout = 1.0
+            if deadlines:
+                timeout = min(timeout, max(0.0, min(deadlines)
+                                           - time.monotonic()))
             try:
                 ready = mpc.wait([self._wake_r] + list(by_conn)
-                                 + list(by_sentinel), 1.0)
+                                 + list(by_sentinel), timeout)
             except OSError:
                 continue  # a process went away while we listed it
             if self._wake_r in ready:
@@ -581,10 +721,14 @@ class _Runtime:
                 got += self._read_all(p)
             with self.cv:
                 for p, reply in got:
-                    self._on_reply(p, *reply)
+                    if reply[0] == "up":
+                        self._on_request(p, *reply[1:])
+                    else:
+                        self._on_reply(p, *reply)
                 for p in dead:
                     self._on_death(p)
                 self._dispatch()
+                self._serve_waits()
 
     def _read_all(self, p: _Proc) -> List[Tuple[_Proc, Tuple]]:
         out = []
@@ -592,6 +736,9 @@ class _Runtime:
             reply = p.read()
             if reply is None:
                 return out
+            if reply[0] == "up":  # a request of the process
+                out.append((p, reply))
+                continue
             seq, status, value = reply
             if isinstance(value, procs.Spilled):
                 try:
@@ -620,12 +767,141 @@ class _Runtime:
         call = p.calls.pop(seq, None)
         if call is None:
             return
-        self._finish(call, status, value)
         if call.kind == "task":
-            self.cpus_used -= call.cpus
-            if p.card is not None:
-                self.cards_used.discard(p.card)
+            self._free_task(p, call)
             self.idle.setdefault(p.card, []).append(p)
+            if (isinstance(value, core_worker.Raised)
+                    and call.retry_exceptions and call.retries > 0):
+                self._retry(call)
+                return
+        self._finish(call, status, value)
+
+    def _free_task(self, p: _Proc, call: _Call) -> None:
+        """The CPUs and the card a task held (its CPUs only where it did
+        not give them back while blocked)."""
+        if not call.blocked:
+            self.cpus_used -= call.cpus
+        call.blocked = 0
+        if p.card is not None:
+            self.cards_used.discard(p.card)
+
+    def _retry(self, call: _Call) -> None:
+        """Run a task again, first of the queue (``max_retries``)."""
+        call.retries -= 1
+        call.proc = call.seq = None
+        self.tasks.appendleft(call)
+
+    # -------------------------------------------------- children's requests
+
+    def _on_request(self, p: _Proc, rid: int, op: str, args: Tuple,
+                    kwargs: Dict[str, Any]) -> None:
+        """A request of a task worker or an actor process (``_Client``),
+        answered on its pipe now or, for a ``get`` or ``wait`` not yet
+        ready, by :meth:`_serve_waits`. ``rid`` 0 wants no answer."""
+        try:
+            out = getattr(self, f"_up_{op}")(p, rid, *args, **kwargs)
+        except Exception as e:  # noqa: BLE001 — the request's error
+            out = _LATER
+            if rid:
+                self._answer(p, rid, "err", _portable(e))
+        if out is not _LATER and rid:
+            self._answer(p, rid, "ok", out)
+
+    def _answer(self, p: _Proc, rid: int, status: str, value: Any) -> None:
+        def send():
+            v = value
+            if status == "ok":  # a large value goes as a file
+                v = serialization.spill_if_large(
+                    os.path.join(self.spill_dir, f"up-{p.pid}-{rid}"), v)
+            p.answer(rid, status, v)
+
+        try:
+            self._post(p, send)
+        except Exception as e:  # noqa: BLE001 — a value that cannot travel
+            p.answer(rid, "err", _portable(e))
+
+    def _up_submit_task(self, p, rid, fn, label, args, kwargs, opts):
+        return self.submit_task(fn, label, args, kwargs, opts)
+
+    def _up_submit_call(self, p, rid, actor_id, method, args, kwargs,
+                        num_returns):
+        return self.submit_call(actor_id, method, args, kwargs, num_returns)
+
+    def _up_create_actor(self, p, rid, wrapper, args, kwargs, opts,
+                         methods):
+        return self.create_actor(wrapper, args, kwargs, opts, methods)
+
+    def _up_put(self, p, rid, value):
+        if isinstance(value, procs.Spilled):
+            value = value.load()
+        return self._store(value)  # a copy already: it crossed a pipe
+
+    def _up_get(self, p, rid, oids, timeout):
+        return self._up_wait(p, rid, oids, len(set(oids)), timeout, "get")
+
+    def _up_wait(self, p, rid, oids, num, timeout, kind="wait"):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        call = None
+        if p in self.task_procs:
+            call = next((c for c in p.calls.values() if c.kind == "task"),
+                        None)
+        w = _UpWait(p, rid, list(oids), num, deadline, kind, call)
+        if self._try_answer(w):
+            return _LATER
+        if call is not None:  # the task gives its CPUs back while it waits
+            if not call.blocked:
+                self.cpus_used -= call.cpus
+            call.blocked += 1
+        self.upwaits.append(w)
+        return _LATER
+
+    def _try_answer(self, w: _UpWait) -> bool:
+        done = {o for o in w.oids if o in self.objects}
+        late = w.deadline is not None and time.monotonic() >= w.deadline
+        if len(done) < w.num and not late:
+            return False
+        if w.kind == "wait":
+            self._answer(w.proc, w.rid, "ok", [o for o in w.oids
+                                               if o in done])
+        elif len(done) < w.num:
+            self._answer(w.proc, w.rid, "err", GetTimeoutError(
+                f"{w.num - len(done)} of {w.num} objects not ready "
+                f"within the timeout"))
+        else:
+            self._answer(w.proc, w.rid, "ok",
+                         [self.objects[o] for o in w.oids])
+        return True
+
+    def _serve_waits(self) -> None:
+        """Answer the children's gets and waits that are ready or late
+        (called with ``cv`` held)."""
+        for w in list(self.upwaits):
+            if self._try_answer(w):
+                self.upwaits.remove(w)
+                self._unblock(w)
+
+    def _unblock(self, w: _UpWait) -> None:
+        call = w.call
+        if call is None or not call.blocked:
+            return
+        call.blocked -= 1
+        if not call.blocked:
+            self.cpus_used += call.cpus
+
+    def _up_get_actor(self, p, rid, name):
+        aid = self.names.get(name)
+        if aid is None:
+            raise ValueError(f"no live actor named {name!r}")
+        return aid, self.actors[aid].methods
+
+    def _up_kill(self, p, rid, actor_id):
+        self.kill(actor_id, wait=False)
+
+    def _up_release(self, p, rid, counts):
+        self._give_back(p, counts)
+
+    def _up_cluster_resources(self, p, rid):
+        return {"CPU": float(self.num_cpus), "GPU": float(self.num_gpus())}
 
     def _finish(self, call: _Call, status: str, value: Any) -> None:
         if call.kind == "control":
@@ -669,6 +945,8 @@ class _Runtime:
         p.proc.join(1.0)
         sent = sorted(p.calls.values(), key=lambda c: c.seq)
         p.calls.clear()
+        self.upwaits = [w for w in self.upwaits if w.proc is not p]
+        self._give_back(p, None)
         try:
             self._on_death_of(p, sent)
         finally:
@@ -682,9 +960,10 @@ class _Runtime:
                 if p in procs_:
                     procs_.remove(p)
             for call in sent:
-                self.cpus_used -= call.cpus
-                if p.card is not None:
-                    self.cards_used.discard(p.card)
+                self._free_task(p, call)
+                if call.retries > 0:
+                    self._retry(call)
+                    continue
                 self._finish(call, "err", WorkerCrashedError(
                     f"{call.label}: the task worker died (exit code "
                     f"{p.proc.exitcode})"))
@@ -758,6 +1037,15 @@ class _Runtime:
         self._wake_w.close()
 
 
+def _portable(e: BaseException) -> BaseException:
+    """``e`` where it pickles, else a RuntimeError naming it."""
+    try:
+        pickle.loads(serialization.dumps(e))
+        return e
+    except Exception:  # noqa: BLE001 — an exception that cannot travel
+        return RuntimeError(f"{type(e).__name__}: {e}")
+
+
 def _check_sendable(values: Sequence[Any], label: str) -> None:
     """Raise here, in the caller, for an argument that cannot travel
     (top-level refs are the arguments' dependencies and are resolved in
@@ -776,43 +1064,195 @@ def _check_sendable(values: Sequence[Any], label: str) -> None:
                 "reference: define them at module level") from e
 
 
+# ------------------------------------------------- a child's line up
+
+
+class _Client:
+    """A task worker's or an actor process's line to the driver: the
+    core's API there (what :func:`runtime` returns), each call a request
+    up the process's pipe (``procs.serve``'s ``uplink``) that the driver's
+    reader answers on the same pipe. The answer goes to the thread that
+    waits for it, not to the process's calls.
+
+    It also keeps the refs of this process: for each object id, the times
+    the driver sent it (``serialization.delivering``) and the copies
+    alive here. When the last copy goes, a thread of its own tells the
+    driver how many it had received (``release``), so the driver unpins
+    the object once no process holds it."""
+
+    def __init__(self, post: Callable[[Any], None], spill_dir: str):
+        self._post = post
+        self._spill_dir = spill_dir
+        self._rids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._waits: Dict[int, list] = {}  # rid -> [event, status, value]
+        self._refs: Dict[str, List[int]] = {}  # oid -> [received, alive]
+        self._refs_lock = threading.RLock()
+        self._released: "queue.SimpleQueue[Tuple[str, int]]" = (
+            queue.SimpleQueue())
+        threading.Thread(target=self._release_loop, daemon=True,
+                         name="rtpt-core-release").start()
+
+    # ----------------------------------------------------------- the pipe
+
+    def route(self, msg: Any) -> bool:
+        """Take an answer off the reader (``procs.serve``'s ``route``)."""
+        if type(msg) is not tuple or not msg or msg[0] != "down":
+            return False
+        _, rid, status, value = msg
+        with self._lock:
+            slot = self._waits.pop(rid, None)
+        if slot is None:
+            return True
+        if isinstance(value, procs.Spilled):
+            try:
+                with serialization.delivering():
+                    value = value.load()
+            except Exception as e:  # noqa: BLE001 — the request's error
+                status, value = "err", e
+        slot[1], slot[2] = status, value
+        slot[0].set()
+        return True
+
+    def request(self, op: str, *args, **kwargs) -> Any:
+        """``op`` done by the driver, waited for; raises its error."""
+        rid = next(self._rids)
+        slot: list = [threading.Event(), None, None]
+        with self._lock:
+            self._waits[rid] = slot
+        try:
+            self._post(("up", rid, op, args, kwargs))
+        except BaseException:
+            with self._lock:
+                self._waits.pop(rid, None)
+            raise
+        slot[0].wait()
+        if slot[1] != "ok":
+            raise slot[2]
+        return slot[2]
+
+    # ----------------------------------------------------------- the refs
+
+    def adopt(self, oid: str) -> ObjectRef:
+        ref = ObjectRef(oid)
+        with self._refs_lock:
+            entry = self._refs.setdefault(oid, [0, 0])
+            entry[1] += 1
+            if serialization.is_delivering():
+                entry[0] += 1
+        weakref.finalize(ref, self._drop, oid)
+        return ref
+
+    def _drop(self, oid: str) -> None:
+        with self._refs_lock:
+            entry = self._refs.get(oid)
+            if entry is None:
+                return
+            entry[1] -= 1
+            if entry[1] > 0:
+                return
+            del self._refs[oid]
+        if entry[0]:
+            self._released.put((oid, entry[0]))
+
+    def _release_loop(self) -> None:
+        while True:
+            counts: Dict[str, int] = {}
+            oid, n = self._released.get()
+            while True:
+                counts[oid] = counts.get(oid, 0) + n
+                try:
+                    oid, n = self._released.get_nowait()
+                except queue.Empty:
+                    break
+            try:
+                self._post(("up", 0, "release", (counts,), {}))
+            except (OSError, ValueError):
+                return  # the driver is gone
+
+    # ------------------------------------------------------ the core's API
+
+    def submit_task(self, fn, label, args, kwargs, opts):
+        return self.request("submit_task", fn, label, args, kwargs, opts)
+
+    def submit_call(self, actor_id, method, args, kwargs, num_returns):
+        return self.request("submit_call", actor_id, method, args, kwargs,
+                            num_returns)
+
+    def create_actor(self, wrapper, args, kwargs, opts, methods):
+        return self.request("create_actor", wrapper, args, kwargs, opts,
+                            methods)
+
+    def put(self, value: Any) -> ObjectRef:
+        value = serialization.spill_if_large(
+            os.path.join(self._spill_dir,
+                         f"put-{os.getpid()}-{ObjectID.generate()}"), value)
+        return self.request("put", value)
+
+    def get_objects(self, oids, timeout):
+        return self.request("get", list(oids), timeout)
+
+    def wait_objects(self, oids, num, timeout):
+        return self.request("wait", list(oids), num, timeout)
+
+    def kill(self, actor_id: str) -> None:
+        self.request("kill", actor_id)
+
+    def get_actor(self, name: str) -> Tuple[str, Dict[str, int]]:
+        return self.request("get_actor", name)
+
+    def cluster_resources(self) -> Dict[str, float]:
+        return self.request("cluster_resources")
+
+
 # ------------------------------------------------------------- the API
 
 _rt: Optional[_Runtime] = None
+_client: Optional[_Client] = None
 _rt_lock = threading.Lock()
 
 
-def _refuse_outside_driver(what: str) -> None:
-    role = ctx.role()
-    if role in ("task", "actor"):
-        raise TypeError(f"{what} in a {role} process: {HANDLES_STAY}")
+def client_uplink(spill_dir: str) -> Callable[[Callable[[Any], None]],
+                                              Callable[[Any], bool]]:
+    """``procs.serve``'s ``uplink`` for a task worker or an actor: this
+    process's :class:`_Client`, made once the pipe is up."""
+    def uplink(post):
+        global _client
+        _client = _Client(post, spill_dir)
+        serialization.set_tracker(_client)
+        return _client.route
+
+    return uplink
 
 
 def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
          *, ignore_reinit_error: bool = False) -> None:
     """Make this process the driver of a core with ``num_cpus`` task slots
     (default: the host's cores) and ``num_gpus`` cards (default: the
-    visible CUDA cards, counted at first need)."""
+    visible CUDA cards, counted at first need). A task or an actor is
+    connected to its driver already."""
     global _rt
-    _refuse_outside_driver("init()")
     with _rt_lock:
-        if _rt is not None:
+        if _rt is not None or _client is not None:
             if ignore_reinit_error:
                 return
             raise RuntimeError("ray_tpu_torch is already initialized; call "
                                "shutdown() first")
         ctx.set_worker_context(ctx.WorkerContext("driver"))
         _rt = _Runtime(int(num_cpus or os.cpu_count() or 1), num_gpus)
+        serialization.set_tracker(_rt)
 
 
 def shutdown() -> None:
     """Stop every process of the core, the reader thread and (where the
-    core started it) the fork server; drop every object."""
+    core started it) the fork server; drop every object. In a task or an
+    actor it does nothing."""
     global _rt
     with _rt_lock:
         rt, _rt = _rt, None
     if rt is not None:
         rt.shutdown()
+        serialization.set_tracker(None)
         ctx.set_worker_context(None)
 
 
@@ -820,13 +1260,14 @@ atexit.register(shutdown)
 
 
 def is_initialized() -> bool:
-    return _rt is not None
+    return _rt is not None or _client is not None
 
 
-def runtime() -> _Runtime:
-    """The driver's core, started with the defaults where ``init`` was not
-    called."""
-    _refuse_outside_driver("a remote call")
+def runtime() -> Union[_Runtime, _Client]:
+    """The driver's core (started with the defaults where ``init`` was
+    not called), or in a task or an actor its line to the driver."""
+    if _client is not None:
+        return _client
     if _rt is None:
         init(ignore_reinit_error=True)
     return _rt
@@ -850,18 +1291,11 @@ def put(value: Any) -> ObjectRef:
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *,
         timeout: Optional[float] = None) -> Any:
     """The values of ``refs`` (one ref or a list), waiting for them up to
-    ``timeout`` seconds; raises the error of a failed one."""
-    rt = runtime()
+    ``timeout`` seconds; raises the error of a failed one. In a task, the
+    task's CPUs are free for other tasks while it waits."""
     lst, single = _as_list(refs)
-    oids = [r.object_id for r in lst]
-    done = rt.wait_objects(oids, len(set(oids)), timeout)
-    if len(done) < len(set(oids)):
-        raise GetTimeoutError(f"{len(set(oids)) - len(done)} of "
-                              f"{len(set(oids))} objects not ready within "
-                              f"{timeout} s")
+    got = runtime().get_objects([r.object_id for r in lst], timeout)
     out = []
-    with rt.cv:
-        got = [rt.objects[o] for o in oids]
     for status, value in got:
         if status == "err":
             raise value
@@ -885,6 +1319,8 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
 
 def cluster_resources() -> Dict[str, float]:
     rt = runtime()
+    if isinstance(rt, _Client):
+        return rt.cluster_resources()
     return {"CPU": float(rt.num_cpus), "GPU": float(rt.num_gpus())}
 
 
@@ -898,6 +1334,8 @@ def kill(actor: "ActorHandle", *, no_restart: bool = True) -> None:
 
 def get_actor(name: str) -> "ActorHandle":
     rt = runtime()
+    if isinstance(rt, _Client):
+        return ActorHandle(*rt.get_actor(name))
     with rt.cv:
         aid = rt.names.get(name)
         if aid is None:
@@ -948,13 +1386,25 @@ def _resolve(module: str, qualname: str) -> Any:
     return obj
 
 
-def _reduce_by_name(target: Any, what: str):
+def _rebuild_remote(kind: str, module: str, qualname: str,
+                    options: Dict[str, Any]) -> Any:
+    """A ``@remote`` wrapper sent by name, with the options it was sent
+    with: the name may hold the wrapper or the plain function or class
+    (wrapped where it is used)."""
+    target = _resolve(module, qualname)
+    target = getattr(target, "__rtpu_target__", target)
+    return (ActorClass if kind == "actor" else RemoteFunction)(target,
+                                                               options)
+
+
+def _reduce_by_name(target: Any, what: str, kind: str,
+                    options: Dict[str, Any]):
     qualname = getattr(target, "__qualname__", "")
     if "<locals>" in qualname or "<lambda>" in qualname:
         raise pickle.PicklingError(
             f"{what} {qualname} is defined inside a function: it cannot be "
             "found by name in another process")
-    return _resolve, (target.__module__, qualname)
+    return _rebuild_remote, (kind, target.__module__, qualname, options)
 
 
 class RemoteFunction:
@@ -976,7 +1426,8 @@ class RemoteFunction:
         return self._fn
 
     def __reduce__(self):
-        return _reduce_by_name(self._fn, "the remote function")
+        return _reduce_by_name(self._fn, "the remote function", "task",
+                               self._options)
 
     def remote(self, *args, **kwargs):
         label = getattr(self._fn, "__qualname__", repr(self._fn))
@@ -1023,8 +1474,8 @@ class ActorMethod:
 
 
 class ActorHandle:
-    """The driver's handle on an actor: ``h.method.remote(...)``. It never
-    leaves the driver (see the module docstring)."""
+    """A handle on an actor: ``h.method.remote(...)``. It travels by id:
+    in a task or an actor, its calls go through the driver."""
 
     def __init__(self, actor_id: str, methods: Dict[str, int]):
         self._actor_id = actor_id
@@ -1038,8 +1489,7 @@ class ActorHandle:
         return ActorMethod(self, name, self._methods[name])
 
     def __reduce__(self):
-        raise TypeError(f"{self!r} cannot be sent to another process: "
-                        f"{HANDLES_STAY}")
+        return ActorHandle, (self._actor_id, self._methods)
 
     def __eq__(self, other: Any) -> bool:
         return (isinstance(other, ActorHandle)
@@ -1081,10 +1531,24 @@ class ActorClass:
         return self._cls
 
     def __reduce__(self):
-        return _reduce_by_name(self._cls, "the actor class")
+        return _reduce_by_name(self._cls, "the actor class", "actor",
+                               self._options)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
+        """Start the actor; a ref at the top of an argument is passed as
+        its value."""
         methods = _methods_of(self._cls)
+        conc = self._options.get("max_concurrency")
+        if conc is not None and int(conc) > 1 and not core_worker.is_async(
+                self._cls):
+            raise ValueError(
+                f"actor {self._cls.__qualname__}: max_concurrency={conc} on "
+                "a class without async methods; the port runs a sync "
+                "actor's calls one at a time (an async actor's coroutines "
+                "interleave up to max_concurrency)")
+        args = [get(a) if isinstance(a, ObjectRef) else a for a in args]
+        kwargs = {k: get(v) if isinstance(v, ObjectRef) else v
+                  for k, v in kwargs.items()}
         aid = runtime().create_actor(self, args, kwargs, self._options,
                                      methods)
         return ActorHandle(aid, methods)

@@ -2,11 +2,11 @@
 ``core/context.py``).
 
 It says what this process is to the port's core: the ``driver`` (the
-process that called ``init``, which holds every handle and ref), a
-``task`` worker of the driver's pool, or an ``actor`` (which one), and
-which card it took, if any. The JAX context also carries a client of
-its cluster controller; the port's core runs in the driver, so the
-context is the whole of it.
+process that called ``init``, the owner of every object), a ``task``
+worker of the driver's pool, or an ``actor`` (which one), and which card
+it took, if any. The JAX context also carries a client of its cluster
+controller; a task worker's or an actor's line to the driver is
+``core/api.py``'s ``_Client``, made where the process starts.
 """
 from __future__ import annotations
 

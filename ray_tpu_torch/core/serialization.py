@@ -13,16 +13,23 @@ an ownership sidecar).
   else the current card where it has CUDA, else the CPU. Plain pickle
   would rebuild it on the receiver's ``cuda:0``, whatever card that
   process was given.
-- :class:`ObjectRef` stays in the driver: in this slice a ref (and an
-  actor handle, ``core/api.py``) refuses to pickle, so passing one to
-  another process raises ``TypeError`` where it is sent.
+- An :class:`ObjectRef` travels by id, and so does an actor handle
+  (``core/api.py``). The driver owns every object: where the driver
+  sends a ref to a process, that process borrows it (:func:`capture`
+  tells the driver which refs a message carried), and the object stays
+  pinned until the process drops its last copy or exits. In the driver
+  a ref that arrives is the driver's own again; in a task worker or an
+  actor it is a client's ref (``core/api.py`` ``_Client``), whose last
+  drop tells the driver.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import pickle
 import sys
-from typing import Any, List, Optional
+import threading
+from typing import Any, Iterator, List, Optional
 
 from ..util import procs
 from . import context as ctx
@@ -31,15 +38,73 @@ from . import context as ctx
 # files (``procs.Spilled``); smaller ones through the pipe.
 SPILL_BYTES = 1 << 20
 
-HANDLES_STAY = (
-    "handles and refs stay in the driver in this slice of the port: "
-    "passing an ObjectRef or an ActorHandle to another process, and "
-    "submitting a task from a task, wait for the next slice")
+# The refs each active :func:`capture` of this thread has seen pickled.
+_captures = threading.local()
+# What makes a ref that arrives in this process: the driver's runtime or
+# a worker's client (``core/api.py``), set where either starts; without
+# one a ref rebuilds untracked.
+_tracker: Optional[Any] = None
+
+
+def set_tracker(tracker: Optional[Any]) -> None:
+    global _tracker
+    _tracker = tracker
+
+
+@contextlib.contextmanager
+def capture() -> Iterator[List[str]]:
+    """The ids of the refs pickled in this thread inside the block, once
+    for each time one was pickled (the innermost capture takes them)."""
+    stack = getattr(_captures, "stack", None)
+    if stack is None:
+        stack = _captures.stack = []
+    found: List[str] = []
+    stack.append(found)
+    try:
+        yield found
+    finally:
+        stack.pop()
+
+
+def _captured(found: List[str]) -> None:
+    """Hand refs an inner capture took on to the capture around it."""
+    stack = getattr(_captures, "stack", None)
+    if stack:
+        stack[-1].extend(found)
+
+
+@contextlib.contextmanager
+def delivering() -> Iterator[None]:
+    """Refs unpickled in this thread inside the block were sent by the
+    driver, which counted them as this process's borrows (a worker's
+    client counts them back when it releases them)."""
+    _captures.delivering = getattr(_captures, "delivering", 0) + 1
+    try:
+        yield
+    finally:
+        _captures.delivering -= 1
+
+
+def is_delivering() -> bool:
+    return bool(getattr(_captures, "delivering", 0))
+
+
+def loads_delivered(data) -> Any:
+    """``pickle.loads`` of a message from the driver."""
+    with delivering():
+        return pickle.loads(data)
+
+
+def _rebuild_ref(object_id: str) -> "ObjectRef":
+    tracker = _tracker
+    if tracker is None:
+        return ObjectRef(object_id)
+    return tracker.adopt(object_id)
 
 
 class ObjectRef:
-    """A future of the driver's core: ``get(ref)`` resolves it. It never
-    leaves the driver (see the module docstring)."""
+    """A future of the driver's core: ``get(ref)`` resolves it. It
+    travels by id (see the module docstring)."""
 
     __slots__ = ("object_id", "__weakref__")
 
@@ -50,8 +115,10 @@ class ObjectRef:
         return self.object_id
 
     def __reduce__(self):
-        raise TypeError(f"{self!r} cannot be sent to another process: "
-                        f"{HANDLES_STAY}")
+        stack = getattr(_captures, "stack", None)
+        if stack:
+            stack[-1].append(self.object_id)
+        return _rebuild_ref, (self.object_id,)
 
     def __hash__(self) -> int:
         return hash(self.object_id)
@@ -118,10 +185,14 @@ def loads(data, buffers=None) -> Any:
 def spill_if_large(path: str, obj: Any) -> Any:
     """``obj`` itself where it pickles to fewer than ``SPILL_BYTES`` (the
     pipe carries it), else a ``procs.Spilled`` file of it at ``path``,
-    its buffers out of band; pickled once either way."""
+    its buffers out of band; pickled once either way. The refs in a file
+    count for the capture around the call; those of an ``obj`` returned
+    as it is count when it is pickled again."""
     bufs: List[pickle.PickleBuffer] = []
-    meta = dumps(obj, bufs)
+    with capture() as found:
+        meta = dumps(obj, bufs)
     raws = [b.raw() for b in bufs]
     if len(meta) + sum(r.nbytes for r in raws) < SPILL_BYTES:
         return obj
+    _captured(found)
     return procs.Spilled(path, None, _parts=(meta, raws))

@@ -12,7 +12,14 @@ process's one call thread (the JAX package's actor mailbox).
   (``rllib/utils/actor_manager.py`` imports them from here).
 - ``_core_actor_main`` hosts the object of an actor of the core's
   ``remote`` (``core/api.py``) in an :class:`ActorHost`: the calls' errors
-  travel as values, ``exit_actor`` retires the actor, an actor with
+  travel as values, ``exit_actor`` retires the actor. An async actor (a
+  class with ``async def`` methods) runs every call, sync or async, on
+  one persistent event loop on a thread of its own (the JAX package's
+  ``ActorMailbox.ensure_aio_loop``): the call thread hands each call to
+  the loop and takes the next, so a coroutine that awaits (a queue's
+  blocked ``get``) holds up no other call; at most ``max_concurrency``
+  (default 100) run at once, and each answers itself when it ends. An
+  actor with
   ``checkpoint_every_n`` / ``checkpoint_interval_s`` writes its instance
   and its exactly-once call journal to the host-local record store
   (``core/checkpoint.py``) and a restarted one restores the newest
@@ -25,16 +32,22 @@ process's one call thread (the JAX package's actor mailbox).
   functions sent to it; results of ``serialization.SPILL_BYTES`` or more
   go back as files.
 
+Both kinds talk to the driver through ``core/api.py``'s ``_Client`` over
+their pipe (``procs.serve``'s ``uplink``): a task or an actor submits
+tasks and calls, gets, waits and puts.
+
 Nothing here imports torch at the top: an actor or task worker that runs
 no torch never loads it.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import multiprocessing
 import os
 import pickle
 import tempfile
+import threading
 import time
 import traceback
 import types
@@ -248,10 +261,13 @@ def actor_payload(cls: Callable, args: Sequence = (),
     kwargs = dict(kwargs or {})
     hint = ("define it at module level (a class or a function), not inside "
             "a function or as a lambda")
-    procs.dumps(cls, f"the actor's class or factory {cls!r}", where, hint)
-    for name, value in [(f"argument {i}", a) for i, a in enumerate(args)] + [
-            (k, v) for k, v in kwargs.items()]:
-        procs.dumps(value, f"{name} {value!r}", where, hint)
+    with serialization.capture():  # the checks' pickles carry no refs
+        procs.dumps(cls, f"the actor's class or factory {cls!r}", where,
+                    hint)
+        for name, value in [(f"argument {i}", a)
+                            for i, a in enumerate(args)] + [
+                (k, v) for k, v in kwargs.items()]:
+            procs.dumps(value, f"{name} {value!r}", where, hint)
     return pickle.dumps((cls, tuple(args), kwargs))
 
 
@@ -326,11 +342,57 @@ class Exited:
 
 def _run(fn: Callable, args: Tuple, kwargs: Dict[str, Any]) -> Any:
     value = fn(*args, **kwargs)
-    if isinstance(value, types.CoroutineType):  # an async method
+    if isinstance(value, types.CoroutineType):  # an async function
         import asyncio
 
         value = asyncio.run(value)
     return value
+
+
+def is_async(cls: type) -> bool:
+    """Does ``cls`` define an ``async def`` method (an async actor)?"""
+    return any(inspect.iscoroutinefunction(getattr(cls, name, None))
+               for name in dir(cls) if not name.startswith("__"))
+
+
+# Coroutines an async actor runs at once where ``max_concurrency`` is not
+# given (the JAX package's default for async actors).
+ASYNC_CONCURRENCY = 100
+
+
+class _AsyncLoop:
+    """An async actor's event loop, on a thread of its own for the
+    actor's life, and the semaphore that bounds its calls."""
+
+    def __init__(self, actor_id: str, max_concurrency: int):
+        import asyncio
+
+        self.loop = asyncio.new_event_loop()
+        self.sem = asyncio.Semaphore(max_concurrency)
+        self.running: set = set()  # the calls' futures, until each ends
+        self.thread = threading.Thread(
+            target=self._run, name=f"rtpt-actor-aio-{actor_id[:8]}",
+            daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+        self.loop.run_forever()
+
+    def submit(self, coro) -> None:
+        import asyncio
+
+        fut = asyncio.run_coroutine_threadsafe(coro, self.loop)
+        self.running.add(fut)
+        fut.add_done_callback(self._done)
+
+    def _done(self, fut) -> None:
+        self.running.discard(fut)
+        if not fut.cancelled() and fut.exception() is not None:
+            logger.error("an async call failed past its answer",
+                         exc_info=fut.exception())
 
 
 class ActorHost:
@@ -369,6 +431,11 @@ class ActorHost:
         self.restored_epoch: Optional[int] = None
         self.mailbox: Optional[procs.Mailbox] = None
         self.dags: Dict[str, Any] = {}  # dag id -> resident.WorkerDAG
+        # How an async actor's call answers itself: its result, a file
+        # where large (``_core_actor_main`` sets it).
+        self.result_wrap: Callable[[int, str, Any], Any] = (
+            lambda seq, method, value: value)
+        self.aio: Optional[_AsyncLoop] = None
         record = None
         if restore and self.ckpt_enabled:
             found = checkpoint.newest_local(actor_id)
@@ -377,8 +444,13 @@ class ActorHost:
         # The class as sent: an ActorClass travels by name (its module
         # attribute is the wrapper, not the class), so checkpoints keep it
         # beside the instance's state (``_restore``).
-        self._cls_ref, args, kwargs = pickle.loads(payload)
+        with serialization.delivering():  # its refs: the process's borrows
+            self._cls_ref, args, kwargs = pickle.loads(payload)
         cls = getattr(self._cls_ref, "__rtpu_target__", self._cls_ref)
+        if is_async(cls):
+            conc = opts.get("max_concurrency")
+            self.aio = _AsyncLoop(actor_id, ASYNC_CONCURRENCY if conc is None
+                                  else max(1, int(conc)))
         if record is not None:
             self.instance = _restore(*record["instance"])
             self.journal = record["journal"]
@@ -402,14 +474,49 @@ class ActorHost:
             return Exited(retired=True)
         if self.replay and _key is not None and _key in self.journal:
             return self.journal[_key]
+        if self.aio is not None:
+            self.aio.submit(self._drive(self.mailbox.seq, _method, _key,
+                                        args, kwargs))
+            return procs.ANSWERED
         try:
             value = _run(getattr(self.instance, _method), args, kwargs)
         except ActorExit:
-            self.exited = True
-            checkpoint.prune_local(self.actor_id)
-            return Exited(retired=False)
+            return self._exit()
         except Exception as e:  # noqa: BLE001 — the call's value
             value = Raised(e, traceback.format_exc())
+        return self._applied(_key, value)
+
+    def _exit(self) -> "Exited":
+        self.exited = True
+        checkpoint.prune_local(self.actor_id)
+        return Exited(retired=False)
+
+    async def _drive(self, seq: int, method: str, key: Optional[int],
+                     args: Tuple, kwargs: Dict[str, Any]) -> None:
+        """An async actor's call, on its loop: a coroutine method is
+        awaited, a sync one runs there; then the call answers itself."""
+        async with self.aio.sem:
+            if self.exited:
+                value: Any = Exited(retired=True)
+            else:
+                try:
+                    value = getattr(self.instance, method)(*args, **kwargs)
+                    if inspect.isawaitable(value):
+                        value = await value
+                    value = self._applied(key, value)
+                except ActorExit:
+                    value = self._exit()
+                except Exception as e:  # noqa: BLE001 — the call's value
+                    value = self._applied(
+                        key, Raised(e, traceback.format_exc()))
+        try:
+            value = self.result_wrap(seq, method, value)
+            self.mailbox.answer(seq, "ok", value)
+        except Exception:  # noqa: BLE001 — reported to the caller
+            self.mailbox.answer(seq, "err", traceback.format_exc())
+
+    def _applied(self, _key: Optional[int], value: Any) -> Any:
+        """Journal and checkpoint after a call ran; its value."""
         if self.replay and _key is not None:
             self.journal[_key] = value
             keys = [k for k in self.journal if isinstance(k, int)]
@@ -535,15 +642,20 @@ def _core_actor_main(conn, payload: bytes, actor_id: str,
     ctx.set_worker_context(ctx.WorkerContext("actor", actor_id, card))
     host: List[ActorHost] = []
 
+    wrap = _result_wrap(spill_dir)
+
     def build() -> ActorHost:
         host.append(ActorHost(payload, actor_id, opts, restore))
+        host[0].result_wrap = wrap
         return host[0]
 
-    procs.serve(conn, build, ready={"t_main": t_main}, load=procs.unspill,
-                wrap=_result_wrap(spill_dir), dumps=serialization.dumps,
+    procs.serve(conn, build, ready={"t_main": t_main}, load=_unspill,
+                wrap=wrap, dumps=serialization.dumps,
                 on_mailbox=lambda mb: host[0].bind(mb),
                 idle=lambda: host[0].idle(),
-                idle_s=float(flags.get("RTPU_CHECKPOINT_TICK_S")))
+                idle_s=float(flags.get("RTPU_CHECKPOINT_TICK_S")),
+                loads=serialization.loads_delivered,
+                uplink=_uplink(spill_dir))
 
 
 class TaskHost:
@@ -564,8 +676,22 @@ def _task_main(conn, card: Optional[int], spill_dir: str,
     if card is not None:
         procs.take_card(card)
     ctx.set_worker_context(ctx.WorkerContext("task", None, card))
-    procs.serve(conn, TaskHost, ready={"t_main": t_main}, load=procs.unspill,
-                wrap=_result_wrap(spill_dir), dumps=serialization.dumps)
+    procs.serve(conn, TaskHost, ready={"t_main": t_main}, load=_unspill,
+                wrap=_result_wrap(spill_dir), dumps=serialization.dumps,
+                loads=serialization.loads_delivered,
+                uplink=_uplink(spill_dir))
+
+
+def _unspill(method: str, args: Tuple) -> Tuple:
+    """A call's arguments from the driver, its files read back."""
+    with serialization.delivering():
+        return procs.unspill(method, args)
+
+
+def _uplink(spill_dir: str):
+    from . import api
+
+    return api.client_uplink(spill_dir)
 
 
 def fork_context(preload: Sequence[str]):

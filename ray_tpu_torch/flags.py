@@ -57,6 +57,10 @@ _define("RTPU_DATA_PROGRESS", bool, False,
 _define("RTPU_DATA_PROGRESS_S", float, 5.0,
         "Seconds between data-executor progress lines when "
         "RTPU_DATA_PROGRESS is on.")
+_define("RTPU_WORKFLOW_STORAGE", str, None,
+        "Workflow durability root (default ~/.ray_tpu_torch/workflows: "
+        "the port's own, not the JAX package's ~/.ray_tpu/workflows, "
+        "whose stored runs it could not load).")
 _define("RTPU_CHECKPOINT_DIR", str, None,
         "Directory for host-local checkpoint files: the data layer's "
         "ingest cursors and streaming-split handout journals, and the "

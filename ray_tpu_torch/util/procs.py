@@ -18,6 +18,10 @@ watched through its sentinel:
   worker receives its next call while it runs one;
 - :func:`stop` asks a set of workers to leave and makes sure none is
   left;
+- a worker may also ask the calling process things over the same pipe
+  (``serve``'s ``uplink``: the core's tasks and actors submit, get and
+  put through their driver), the answers routed to the thread that
+  waits for them;
 - a call that must hold the worker's one call thread past its own answer
   (a compiled DAG's resident loop) answers itself through the worker's
   :class:`Mailbox` and takes the calls meant for it from there, while the
@@ -417,7 +421,10 @@ def serve(conn, build: Callable[[], Any],
           dumps: Callable[[Any], bytes] = pickle.dumps,
           on_mailbox: Optional[Callable[[Mailbox], None]] = None,
           idle: Optional[Callable[[], None]] = None,
-          idle_s: float = 0.25) -> None:
+          idle_s: float = 0.25,
+          loads: Callable[[bytes], Any] = pickle.loads,
+          uplink: Optional[Callable[[Callable[[Any], None]],
+                                    Callable[[Any], bool]]] = None) -> None:
     """A worker process's loop, to the end of the process.
 
     A reader thread takes the calls off ``conn`` (``load(method, args)``
@@ -436,21 +443,35 @@ def serve(conn, build: Callable[[], Any],
     ``on_mailbox`` is given it receives the process's :class:`Mailbox`
     once the object is built: a call that returns :data:`ANSWERED`
     answered itself through it. ``idle()`` runs between calls, at most
-    every ``idle_s`` seconds, and so when calls stop. The process leaves with ``os._exit``: the
-    interpreter's own teardown (torch's modules, a thread left behind)
-    would only cost the calling process its join."""
+    every ``idle_s`` seconds, and so when calls stop. ``loads``
+    unpickles what comes over ``conn``. Where ``uplink`` is given, this
+    process also asks the calling process things over the same pipe:
+    ``uplink(post)`` runs once, before the reader starts, and gets
+    ``post(msg)``, which sends a message up (under the lock the answers
+    take); it returns ``route(msg)``, which the reader offers every
+    message first: one it takes (the answer to a request, for the thread
+    that waits on it) never reaches the calls. The process leaves with
+    ``os._exit``: the interpreter's own teardown (torch's modules, a
+    thread left behind) would only cost the calling process its join."""
     io = io if io is not None else {}
     io.setdefault("recv_s", 0.0)
     io.setdefault("send_s", 0.0)
     inbox: "queue.Queue[Any]" = queue.Queue()
     send_lock = threading.Lock()
 
+    def post(msg: Any) -> None:
+        data = dumps(msg)
+        with send_lock:
+            conn.send_bytes(data)
+
+    route = uplink(post) if uplink is not None else None
+
     def read() -> None:
         while True:
             try:
                 conn.poll(None)  # waiting for the caller is not transfer
                 t = time.perf_counter()
-                msg = pickle.loads(conn.recv_bytes())
+                msg = loads(conn.recv_bytes())
             except (EOFError, OSError):
                 # The calling process is gone: leave now, whatever this
                 # process's main thread is running.
@@ -465,6 +486,9 @@ def serve(conn, build: Callable[[], Any],
             if msg is None:
                 inbox.put(None)
                 return
+            if route is not None and route(msg):
+                msg = None
+                continue
             seq, method, args, kwargs = msg
             if load is not None:
                 try:
@@ -473,6 +497,9 @@ def serve(conn, build: Callable[[], Any],
                     method, args = None, traceback.format_exc()
             io["recv_s"] += time.perf_counter() - t
             inbox.put((seq, method, args, kwargs))
+            # Hold no call while waiting for the next: a ref in it would
+            # stay borrowed (``core/api.py``).
+            msg = args = kwargs = None
 
     def answer(seq: int, status: str, value: Any) -> None:
         t = time.perf_counter()
@@ -511,12 +538,14 @@ def serve(conn, build: Callable[[], Any],
             if msg is None:
                 break
             seq, method, args, kwargs = msg
+            msg = None
             if method is None:  # its arguments did not load
                 answer(seq, "err", args)
                 continue
             mailbox.seq = seq
             try:
                 value = getattr(obj, method)(*args, **kwargs)
+                args = kwargs = None  # nothing of a call outlives it
                 if value is ANSWERED:
                     continue
                 if wrap is not None:
@@ -524,9 +553,11 @@ def serve(conn, build: Callable[[], Any],
                     value = wrap(seq, method, value)
                     io["send_s"] += time.perf_counter() - t
             except Exception:  # noqa: BLE001 — reported to the caller
+                args = kwargs = None
                 answer(seq, "err", traceback.format_exc())
                 continue
             answer(seq, "ok", value)
+            value = None
     except (BrokenPipeError, ConnectionResetError):
         pass  # the calling process is gone
     sys.stdout.flush()

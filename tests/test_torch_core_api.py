@@ -4,10 +4,11 @@ package's tests/test_core_tasks.py (:16-36, :53-93, :110, :115),
 tests/test_actors.py (:22-29, :46-98, :160-211) and
 tests/test_actor_checkpoint.py (:68, :151, :233, :292-330), where one
 host allows; the JAX tests' nested ``@remote`` functions and classes are
-module-level here (the port sends them by name). The cases the JAX tests
-have for nested refs, handle passing and tasks submitted from tasks
-(tests/test_core_tasks.py:42, :102, tests/test_actors.py:35) become the
-refusals this slice makes instead.
+module-level here (the port sends them by name). Refs and handles that
+cross processes, tasks submitted from tasks (tests/test_core_tasks.py:42,
+:102, tests/test_actors.py:35), task retries
+(tests/test_fault_tolerance.py:26, :40, :114, :131) and async actors
+whose coroutines interleave are held here too.
 
 Task workers and actor processes import this module again to find its
 functions and classes, so its top loads neither torch nor jax.
@@ -15,6 +16,7 @@ functions and classes, so its top loads neither torch nor jax.
 import multiprocessing
 import os
 import signal
+import subprocess
 import sys
 import time
 
@@ -55,6 +57,61 @@ def two():
 @rt.remote
 def submits_a_task():
     return rt.get(add.remote(20, 22))
+
+
+@rt.remote
+def gets_nested(lst):
+    assert isinstance(lst[0], rt.ObjectRef)
+    return rt.get(lst[0])
+
+
+@rt.remote
+def relay(lst):
+    """Gets a ref it was sent, nested; returns a ref of its own put (made
+    through the driver) and the ref it was sent."""
+    inner = lst[0]
+    return [rt.put(rt.get(inner) + 1)], inner
+
+
+@rt.remote
+def bump(handle):
+    return rt.get(handle.inc.remote(10))
+
+
+@rt.remote(max_retries=2)
+def dies_once(marker):
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(1)  # the worker dies in the middle of the task
+    return "survived"
+
+
+@rt.remote
+def dies():
+    os._exit(1)
+
+
+@rt.remote(max_retries=1)
+def square_or_die(i, marker):
+    if i == 3 and not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(1)
+    return i * i
+
+
+@rt.remote(max_retries=3, retry_exceptions=True)
+def fails_twice(marker):
+    n = int(open(marker).read() or 0) if os.path.exists(marker) else 0
+    with open(marker, "w") as f:
+        f.write(str(n + 1))
+    if n < 2:
+        raise ValueError(f"app failure #{n}")
+    return n
+
+
+@rt.remote(max_retries=3)
+def always_raises():
+    raise ValueError("boom")
 
 
 @rt.remote
@@ -163,6 +220,60 @@ class PairQuitter:
 class HoldsHandle:
     def __init__(self, handle):
         self.handle = handle
+
+    def bump(self, k):
+        return rt.get(self.handle.inc.remote(k))
+
+
+@rt.remote
+class Keeper:
+    """Holds a ref it was sent, nested in a list."""
+
+    def keep(self, lst):
+        self.ref = lst[0]
+        return True
+
+    def read(self):
+        return rt.get(self.ref)
+
+    def drop(self):
+        del self.ref
+        return True
+
+
+@rt.remote
+class Gate:
+    """An async actor: ``wait_open`` awaits until ``open`` runs."""
+
+    def __init__(self):
+        self.event = None
+        self.log = []
+
+    def _event(self):
+        import asyncio
+
+        if self.event is None:
+            self.event = asyncio.Event()
+        return self.event
+
+    async def wait_open(self, tag):
+        await self._event().wait()
+        self.log.append(tag)
+        return tag
+
+    async def open(self):
+        self._event().set()
+        self.log.append("open")
+        return "opened"
+
+    def read_log(self):
+        return list(self.log)
+
+
+@rt.remote
+class SyncOnly:
+    def ping(self):
+        return "pong"
 
 
 def _wait_for(pred, timeout=30.0, interval=0.05, desc="condition"):
@@ -279,30 +390,185 @@ def test_task_workers_load_no_torch(core):
 # ------------------------------------- refusals of this slice (divergences)
 
 
-def test_nested_ref_refused_before_send(core):
-    """tests/test_core_tasks.py:42 passes a ref nested in a list: refs stay
-    in the driver in this slice."""
-    with pytest.raises(TypeError, match="stay in the driver"):
-        passthrough.remote([rt.put(42)])
+def test_nested_ref_passthrough(core):
+    """tests/test_core_tasks.py:42: a ref nested in an argument arrives
+    as a ref, and the task gets its value from the driver."""
+    inner = rt.put(42)
+    assert rt.get(gets_nested.remote([inner])) == 42
+    # A task's result that holds a ref hands it back to the driver.
+    (back,) = rt.get(passthrough.remote([inner]))
+    assert isinstance(back, rt.ObjectRef) and rt.get(back) == 42
 
 
-def test_task_from_task_refused(core):
-    """tests/test_core_tasks.py:102 submits a task from a task: refused in
-    the task worker, and the outer task fails with that TypeError."""
-    with pytest.raises(rt.TaskError) as ei:
-        rt.get(submits_a_task.remote())
-    assert isinstance(ei.value.cause, TypeError)
-    assert "next slice" in str(ei.value.cause)
+def test_nested_task_submission(core):
+    """tests/test_core_tasks.py:102: a task submits a task and gets it."""
+    assert rt.get(submits_a_task.remote(), timeout=60) == 42
 
 
-def test_handle_passing_refused(core):
-    """tests/test_actors.py:35 passes an actor handle into a task."""
+_ONE_CPU_SCRIPT = r"""
+import sys
+sys.path.insert(0, {repo!r})
+import ray_tpu_torch as rt
+
+
+@rt.remote
+def add(a, b):
+    return a + b
+
+
+@rt.remote
+def outer():
+    return rt.get(add.remote(20, 22))
+
+
+@rt.remote
+def waits_outer():
+    ready, _ = rt.wait([outer.remote()], num_returns=1, timeout=60)
+    return rt.get(ready[0])
+
+
+if __name__ == "__main__":
+    rt.init(num_cpus=1)
+    try:
+        print("NESTED", rt.get(outer.remote(), timeout=60))
+        print("DEEPER", rt.get(waits_outer.remote(), timeout=60))
+    finally:
+        rt.shutdown()
+"""
+
+
+def test_nested_task_submission_on_one_cpu(tmp_path):
+    """tests/test_core_tasks.py:102 under ``init(num_cpus=1)``: the outer
+    task gives its CPU back while it waits, so the inner one runs (a
+    driver of its own, in a process with a time limit of its own: a
+    deadlock fails the test instead of hanging it)."""
+    script = tmp_path / "one_cpu.py"
+    script.write_text(_ONE_CPU_SCRIPT.format(
+        repo=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=90, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines() == ["NESTED 42", "DEEPER 42"]
+
+
+def test_actor_handle_passing(core):
+    """tests/test_actors.py:35: a handle passed into a task calls the
+    actor through the driver; so does one passed to an actor's
+    constructor."""
     c = Counter.remote(0)
-    with pytest.raises(TypeError, match="stay in the driver"):
-        passthrough.remote(c)
-    with pytest.raises(TypeError, match="stay in the driver"):
-        HoldsHandle.remote(c)
+    assert rt.get(bump.remote(c), timeout=60) == 10
+    assert rt.get(c.read.remote()) == 10
+    h = HoldsHandle.remote(c)
+    assert rt.get(h.bump.remote(5), timeout=60) == 15
+    assert rt.get(c.read.remote()) == 15
+    rt.kill(h)
     rt.kill(c)
+
+
+def test_borrowed_ref_pins_its_object(core):
+    """A ref held in an actor pins its object after the driver dropped
+    its own, until the actor drops its copy; the process's exit drops
+    every ref it held."""
+    import gc
+
+    holds = _runtime().holds
+    k = Keeper.remote()
+    ref = rt.put("kept")
+    oid = ref.object_id
+    assert rt.get(k.keep.remote([ref]), timeout=30)
+    del ref
+    gc.collect()
+    assert oid in holds
+    assert rt.get(k.read.remote(), timeout=30) == "kept"
+    assert rt.get(k.drop.remote(), timeout=30)
+    _wait_for(lambda: oid not in holds, desc="the released borrow")
+    ref = rt.put("again")
+    oid = ref.object_id
+    assert rt.get(k.keep.remote([ref]), timeout=30)
+    del ref
+    gc.collect()
+    rt.kill(k)
+    _wait_for(lambda: oid not in holds, desc="the dead borrower's refs")
+
+
+def test_ref_borrows_balance_under_load(core):
+    """64 tasks on 4 CPUs pass refs both ways at once, with the
+    interpreter switching threads every 10 us: every value arrives, and
+    once the driver drops its refs every object is released (a lost
+    update to a hold count would pin one for good or free one in use)."""
+    import gc
+
+    holds = _runtime().holds
+    base = set(holds)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        refs = [rt.put(i) for i in range(64)]
+        got = rt.get([relay.remote([r]) for r in refs], timeout=120)
+        assert rt.get([g[0][0] for g in got], timeout=60) == [
+            i + 1 for i in range(64)]
+        assert [g[1] for g in got] == refs
+        del refs, got
+        gc.collect()
+        _wait_for(lambda: set(holds) <= base, timeout=30,
+                  desc="every object released")
+    finally:
+        sys.setswitchinterval(old)
+
+
+def test_task_retries_on_worker_death(core, tmp_path):
+    """tests/test_fault_tolerance.py:26, :40, :114."""
+    marker = str(tmp_path / "died")
+    assert rt.get(dies_once.remote(marker), timeout=60) == "survived"
+    with pytest.raises(rt.WorkerCrashedError):
+        rt.get(dies.remote(), timeout=60)
+    marker = str(tmp_path / "died3")
+    out = rt.get([square_or_die.remote(i, marker) for i in range(8)],
+                 timeout=90)
+    assert out == [i * i for i in range(8)]
+
+
+def test_retry_exceptions_retries_application_errors(core, tmp_path):
+    """tests/test_fault_tolerance.py:131: retry_exceptions re-runs a task
+    whose own code raised; without it the error surfaces at once."""
+    marker = str(tmp_path / "count")
+    assert rt.get(fails_twice.remote(marker), timeout=60) == 2
+    with pytest.raises(rt.TaskError, match="boom"):
+        rt.get(always_raises.remote(), timeout=30)
+
+
+def test_catch_exceptions_option_is_carried(core):
+    """The workflow layer's option rides on the task and changes nothing
+    here (as in the JAX package)."""
+    f = add.options(catch_exceptions=True)
+    assert f._options["catch_exceptions"] is True
+    assert rt.get(f.remote(1, 2)) == 3
+
+
+def test_async_actor_calls_interleave(core):
+    """A coroutine blocked on an event holds up no other call: the gate's
+    opener runs while two waiters wait, and a sync method runs on the
+    same loop meanwhile."""
+    g = Gate.remote()
+    first = g.wait_open.remote("a")
+    second = g.wait_open.remote("b")
+    ready, _ = rt.wait([first, second], num_returns=1, timeout=1.0)
+    assert ready == []
+    assert rt.get(g.read_log.remote(), timeout=30) == []
+    assert rt.get(g.open.remote(), timeout=30) == "opened"
+    assert rt.get([first, second], timeout=30) == ["a", "b"]
+    assert rt.get(g.read_log.remote(), timeout=30) == ["open", "a", "b"]
+    rt.kill(g)
+
+
+def test_max_concurrency_on_a_sync_actor_refused_before_any_spawn(core):
+    before = len(_runtime().actors)
+    with pytest.raises(ValueError, match="max_concurrency"):
+        SyncOnly.options(max_concurrency=4).remote()
+    assert len(_runtime().actors) == before
+    g = Gate.options(max_concurrency=2).remote()
+    assert rt.get(g.open.remote(), timeout=30) == "opened"
+    rt.kill(g)
 
 
 def test_nested_function_and_class_refused_before_any_spawn(core):

@@ -916,9 +916,9 @@ def test_mpmd_refuses_before_any_spawn(core, monkeypatch):
 
 
 def test_handles_refused_before_any_send(core):
-    """An ActorHandle or an ObjectRef sent to another process raises
-    TypeError in the driver, saying that this waits for the next slice;
-    so does a nested remote class, naming itself."""
+    """A nested remote class raises TypeError in the driver, naming
+    itself, before any spawn. (Handles and refs travel since slice 18:
+    ``test_handle_and_ref_reach_a_child_without_jax``.)"""
     import ray_tpu_torch as rt
 
     class Nested:
@@ -927,10 +927,65 @@ def test_handles_refused_before_any_send(core):
     with pytest.raises(TypeError, match="Nested"):
         rt.remote(Nested).remote()
     assert _actors() == 0
-    with pytest.raises(TypeError, match="next slice"):
-        rt.remote(_Factory).remote(rt.put(1))
-    with pytest.raises(TypeError, match="next slice"):
-        import pickle
 
-        pickle.dumps(rt.put(1))
+
+# Run as a file, as _CORE_SCRIPT: the task worker and the actor run it
+# again as their main module, so the blocks hold there too.
+_HANDLE_SCRIPT = r"""
+import sys
+for name in ("jax", "ray_tpu", "cloudpickle"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import ray_tpu_torch as rt
+
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "cloudpickle")
+                  and sys.modules[m] is not None)
+
+
+@rt.remote
+class Box:
+    def __init__(self):
+        self.items = []
+
+    def add(self, x):
+        self.items.append(x)
+        return len(self.items)
+
+
+@rt.remote
+def use(handle, nested):
+    ref = nested["ref"]
+    return (rt.get(handle.add.remote(rt.get(ref))),
+            type(handle).__name__, type(ref).__name__, leaked(),
+            "torch" in sys.modules)
+
+
+if __name__ == "__main__":
+    rt.init(num_cpus=2)
+    try:
+        box = Box.remote()
+        print("CHILD", rt.get(use.remote(box, {{"ref": rt.put(7)}}),
+                              timeout=60))
+    finally:
+        rt.shutdown()
+    print("DRIVER", leaked())
+"""
+
+
+def test_handle_and_ref_reach_a_child_without_jax(tmp_path):
+    """An ActorHandle and a ref nested in a dict reach a task worker that
+    has loaded neither jax nor the JAX package (nor torch), arrive as a
+    handle and a ref, and work there through the driver."""
+    script = tmp_path / "handles.py"
+    script.write_text(_HANDLE_SCRIPT.format(repo=str(REPO)))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert "CHILD (1, 'ActorHandle', 'ObjectRef', [], False)" in lines, (
+        proc.stdout)
+    assert "DRIVER []" in lines, proc.stdout
 

@@ -732,3 +732,34 @@ def test_ledger_never_evicts_the_row_it_fills(monkeypatch):
     assert len(rows) == 16
     assert rows[0]["request_id"] == "fresh" and rows[0]["status"] == "ok"
     assert "shed-00" not in {r["request_id"] for r in rows}
+
+
+_TTFT_BOUNDS = [0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0]
+
+
+@pytest.mark.parametrize("counts, q", [
+    # chip_smoke's serve_trace buckets: 16 TTFTs, the p99 near the 0.25
+    # edge, on either side of it.
+    ([0, 0, 0, 15, 1, 0, 0, 0, 0, 0], 0.99),
+    ([0, 0, 0, 16, 0, 0, 0, 0, 0, 0], 0.99),
+    ([0, 0, 4, 12, 0, 0, 0, 0, 0, 0], 0.99),
+    # A quantile that lands exactly on an edge (cum == target).
+    ([0, 0, 50, 50, 0, 0, 0, 0, 0, 0], 0.5),
+    ([2, 0, 0, 0, 0, 0, 0, 0, 0, 2], 0.5),
+    # Empty buckets between, the first bucket, and past the last bound.
+    ([0, 3, 0, 0, 0, 0, 1, 0, 0, 0], 0.9),
+    ([5, 0, 0, 0, 0, 0, 0, 0, 0, 0], 0.01),
+    ([1, 0, 0, 0, 0, 0, 0, 0, 0, 0], 1.0),
+    ([0, 0, 0, 0, 0, 0, 0, 0, 0, 0], 0.99),
+])
+def test_hist_quantile_equals_jax(counts, q):
+    """The controller's TTFT p99 (``_hist_quantile``) against the JAX
+    package's on the same bucket counts, edges included; the +Inf bucket
+    (counted, past the bounds) gives the last bound."""
+    from ray_tpu.core import telemetry as jtelemetry
+
+    over = 3 if counts[-1] else 0
+    h = {"buckets": list(counts) + [over], "count": sum(counts) + over,
+         "sum": 0.0}
+    got = ptelemetry._hist_quantile(_TTFT_BOUNDS, h, q)
+    assert got == jtelemetry._hist_quantile(_TTFT_BOUNDS, h, q)
