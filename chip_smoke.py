@@ -135,7 +135,26 @@ their compiled bytecode under ``ray_tpu_torch/_build/pycache``
    directory or workflow directory left. Prints each arm's wall, the
    child's spawn to its first checkpoint, kill to RESUMABLE, each
    generate's ms in the actor beside the in-process engine's and the
-   queue's gap between tokens beside the decode tick.
+   queue's gap between tokens beside the decode tick. Then
+   ``core_stream``: the same model on one ``StreamingLlama`` actor
+   (``num_gpus=1``, ``max_concurrency=4``; the witness's engine ticking
+   inside), after a card task stopped by ``cancel(force=True)`` (its
+   process gone, its card free again): four ``num_returns="streaming"``
+   calls at once read round-robin (the witness's tokens bit for bit, the
+   calls overlapping, 4 slots busy, each first item read while its call
+   ran), a stream with a window of 4 read slowly (never more than 4
+   ahead), a stream closed after 8 tokens (its slot free within one
+   engine step of the producer's closed report), a running generate
+   cancelled, a fifth behind four busy threads
+   cancelled and a call with ``deadline_s=0.5`` behind them (neither
+   starts), ``recursive=True`` on a CPU task that submitted two generates
+   (both stopped), the actor's card named by ``get_runtime_context()``
+   and a call's span in the driver's trace; K1 8 a prefill in the actor;
+   no process or segment left. Prints each stream's submit to first item
+   beside the witness's prefill, the gap between items beside the tick,
+   an item's round trip, close to free, each cancel to its error and a
+   force cancel to the process's exit (``tools/core_stream_phases.py``
+   runs it alone).
 5. ``train``: the training main path. ``bench_350m(remat=True,
    remat_policy="dots")`` at full width and depth (f32 params, bf16
    compute) through ``transformer_train_step`` with the default AdamW:
@@ -3046,6 +3065,576 @@ def phase_workflow_llm(cfg, prompts, witness, tick_s, eng):
     if failures:
         raise AssertionError("; ".join(failures))
     return resumed_launches + pool_launches
+
+
+# ------------------------------------------------------------- core_stream
+
+CORE_STREAMS = (0, 1, 2, 3)  # the prompts streamed at once, a thread each
+CORE_WINDOW = 4  # the backpressure arm's _generator_backpressure_num_objects
+CORE_SLOW_READS = 24  # items that arm reads slowly, CORE_SLOW_READ_S apart
+CORE_SLOW_READ_S = 0.05
+CORE_CLOSE_AFTER = 8  # tokens read before the close arm closes its stream
+CORE_DEADLINE_S = 0.5
+
+
+class StreamingLlama(LlamaWorker):
+    """core_stream's actor (one card, ``num_gpus=1``, ``max_concurrency=4``):
+    LlamaWorker's engine, ticking on its own thread, behind four call
+    threads. Its methods wait on the engine in 2 ms slices, so a cancel
+    raised into a call thread lands between them; a call that ends early
+    aborts its engine request (its slot frees at once)."""
+
+    def __init__(self):
+        import collections
+
+        super().__init__()
+        self.lock = threading.Lock()
+        self.prefills = 0  # engine submits that ran their prefill
+        self.calls = {}  # stream tag -> its record
+        self.ended_early = []  # (what, id, monotonic clock, engine ticks)
+        # When each engine step that did work ended (the monotonic clock
+        # is the host's, so the driver's stamps compare with it).
+        self.tick_ends = collections.deque(maxlen=4096)
+        step = self.eng.tick
+
+        def tick():
+            n = step()
+            if n:
+                self.tick_ends.append(time.monotonic())
+            return n
+
+        self.eng.tick = tick
+
+    def _submit(self, prompt):
+        req = self.eng.submit(prompt, timeout=600)
+        with self.lock:
+            self.prefills += 1
+        return req
+
+    def _early(self, what, tag, req):
+        self.eng.abort(req)
+        self.ended_early.append((what, tag, time.monotonic(),
+                                 self.eng.ticks))
+
+    def ticks_between(self, t0, t1):
+        """Engine steps that ended in (t0, t1], monotonic clock."""
+        return sum(t0 < t <= t1 for t in list(self.tick_ends))
+
+    def stream_tokens(self, tag, prompt):
+        """The prompt's greedy tokens, yielded as the engine makes them
+        (``num_returns="streaming"``); its record under ``tag``: call
+        start and end, items whose report the driver answered, each
+        report's round trip, the most slots busy seen."""
+        rec = {"start": time.time(), "end": None, "acked": 0, "rtt_s": [],
+               "max_busy": 0.0, "told_closed": None}
+        self.calls[tag] = rec
+        req, sent, done = None, 0, False
+        try:
+            req = self._submit(prompt)
+            while True:
+                done = self.eng.is_done(req)
+                toks = self.eng.peek(req)
+                rec["max_busy"] = max(rec["max_busy"],
+                                      self.eng.stats()["slots_busy"])
+                for tok in toks[sent:]:
+                    t = time.perf_counter()
+                    try:
+                        yield tok
+                    except GeneratorExit:  # the report answered closed
+                        rec["told_closed"] = time.monotonic()
+                        raise
+                    rec["rtt_s"].append(time.perf_counter() - t)
+                    sent += 1
+                    rec["acked"] = sent
+                if done and sent == len(toks):
+                    break
+                time.sleep(0.002)
+        finally:
+            if req is not None:
+                if done:
+                    self.eng.pop_result(req)
+                else:  # closed or cancelled: the slot frees now
+                    self._early("stream", tag, req)
+            rec["end"] = time.time()
+
+    def generate(self, i, prompt, marker=None):
+        """Append ``(i, pid)`` to the marker file, then the prompt's greedy
+        tokens, waited for in 2 ms slices."""
+        import os
+
+        if marker is not None:
+            with open(marker, "a") as f:
+                f.write(f"{i} {os.getpid()}\n")
+        t0 = time.perf_counter()
+        req = None
+        try:
+            req = self._submit(prompt)
+            while not self.eng.is_done(req):
+                time.sleep(0.002)
+            out, req = self.eng.pop_result(req), None
+        finally:
+            if req is not None:  # cancelled mid-run
+                self._early("generate", i, req)
+        self.generate_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def acked(self, tag):
+        return self.calls[tag]["acked"]
+
+    def record(self, tag):
+        return dict(self.calls[tag])
+
+    def busy(self):
+        return self.eng.stats()["slots_busy"]
+
+    def context(self):
+        """The card as get_runtime_context names it, the card torch uses,
+        this pid."""
+        import os
+
+        import ray_tpu_torch as rt
+        import torch
+
+        return (rt.get_runtime_context().get_accelerator_ids()["GPU"],
+                torch.cuda.current_device(), os.getpid())
+
+    def trace_id(self):
+        from ray_tpu_torch.util import tracing
+
+        return tracing.current_trace_id()
+
+    def counts(self):
+        return {"prefills": self.prefills, "launches": self.launches(),
+                "ended_early": list(self.ended_early)}
+
+
+def card_spin(marker):
+    """core_stream's card task: a CUDA context and 4 MiB on its card, then
+    a loop of small kernels until it is stopped."""
+    import os
+
+    import torch
+
+    x = torch.ones(1024, 1024, device="cuda")
+    torch.cuda.synchronize()
+    with open(marker, "w") as f:
+        f.write(str(os.getpid()))
+    while True:
+        x.mul_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+
+
+def two_generates(actor, prompts, marker):
+    """core_stream's CPU task: two generate calls on ``actor``, waited for
+    (a recursive cancel of this task reaches them)."""
+    import ray_tpu_torch as rt
+
+    return rt.get([actor.generate.remote(7 + j, p, marker)
+                   for j, p in enumerate(prompts)])
+
+
+def _marker_ids(marker):
+    import os
+
+    if not os.path.exists(marker):
+        return []
+    with open(marker) as f:
+        return [int(line.split()[0]) for line in f.read().splitlines()]
+
+
+def _wait_until(pred, timeout_s, what, failures):
+    deadline = time.time() + timeout_s
+    while not pred():
+        if time.time() > deadline:
+            failures.append(f"{what}: not within {timeout_s} s")
+            return False
+        time.sleep(0.005)
+    return True
+
+
+def _runtime_segments():
+    """The /dev/shm segments of this driver's core runtime as they stand
+    now: those it and its processes (its task workers, its actors) map,
+    read from their /proc/<pid>/maps, and the channel segments the driver
+    opened (``object_store``). Another process's segments on the same
+    machine are not among them."""
+    import multiprocessing
+    import os
+
+    from ray_tpu_torch.core import object_store
+
+    names = set(object_store._channel_open)  # the port's, all "rtpt..."
+    for pid in [os.getpid()] + [c.pid for c in multiprocessing
+                                .active_children()]:
+        try:
+            with open(f"/proc/{pid}/maps") as f:
+                for line in f:
+                    path = line.split()[-1]
+                    if path.startswith("/dev/shm/rtpt"):
+                        names.add(path[len("/dev/shm/"):])
+        except (OSError, IndexError):
+            continue
+    return names
+
+
+def phase_core_stream(cfg, prompts, witness, tick_s, prefill_ms):
+    """serve_cfg()'s Llama-3-8B (SERVE_LAYERS layers) streamed out of one
+    actor of the port's core: a StreamingLlama (``num_gpus=1``,
+    ``max_concurrency=4``), the witness's engine ticking on its own thread
+    inside. Held:
+
+    - ``force``: first, a card task (``card_spin``) cancelled with
+      ``force=True``: TaskCancelledError, its process gone, its card free
+      again (``available_resources()["GPU"]`` back where it was);
+    - ``context``: in the actor, ``get_runtime_context()
+      .get_accelerator_ids()["GPU"]`` names its card; with tracing on, a
+      call's consumer span shares the driver's trace id;
+    - ``streams``: four ``stream_tokens`` calls with
+      ``num_returns="streaming"`` at once, read round-robin: each the
+      witness's tokens bit for bit, the four calls' intervals overlapping,
+      4 slots busy at once, each first item read while its call ran;
+    - ``backpressure``: a stream with a window of CORE_WINDOW read slowly:
+      the reports answered never more than the window ahead of the items
+      read, and the window reached;
+    - ``close``: a stream closed after CORE_CLOSE_AFTER tokens: its
+      producer's next report answers closed, its finally aborts the
+      request, and the slot is free within one engine step of that
+      answer (Serve's measure, from when the replica learns of a close)
+      and within two of the consumer's close (one until the producer's
+      next report, one for the step in flight);
+    - ``cancel``: a running generate (TaskCancelledError, its slot freed);
+      a fifth generate behind four busy threads (fails without waiting for
+      them and never starts); a call behind them with
+      ``deadline_s=CORE_DEADLINE_S`` (DeadlineExceededError, never
+      starts); ``recursive=True`` on a CPU task that submitted two
+      generates (both stopped);
+    - a first generate warms the actor (the witness's tokens);
+    - K1 launched 8 times a prefill in the actor (SERVE_LAYERS a prompt);
+      after ``shutdown()`` no process, core directory or /dev/shm segment
+      of the core left (the segments the runtime's processes mapped).
+
+    Prints each arm's times beside the witness's prefill and tick. Returns
+    the K1 launches counted in the actor."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.serve.llm_engine import bucket_len
+    from ray_tpu_torch.util import tracing
+
+    failures = []
+    t_phase = time.perf_counter()
+    segments_before = _runtime_segments()
+    td = tempfile.mkdtemp(prefix="core-stream-")
+    marker = os.path.join(td, "marker")
+    cores_before = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                              "rtpt-core-*")))
+    out = {"n_layers": cfg.n_layers, "new_tokens": MAX_NEW,
+           "decode_tick_ms_4_slots": tick_s * 1e3,
+           "prefill_ms_by_bucket": prefill_ms}
+    pids = []
+    launches = 0
+    rt.init(num_cpus=4)
+    try:
+        # Arm 1: a card task stopped with force=True.
+        gpu0 = rt.available_resources()["GPU"]
+        spin_marker = os.path.join(td, "spin")
+        t0 = time.perf_counter()
+        spin = rt.remote(cs.card_spin).options(num_gpus=1).remote(
+            spin_marker)
+        if _wait_until(lambda: os.path.exists(spin_marker), 120,
+                       "force: the card task's start", failures):
+            time.sleep(0.05)
+            with open(spin_marker) as f:
+                spin_pid = int(f.read())
+            pids.append(spin_pid)
+            held = rt.available_resources()["GPU"]
+            t_cancel = time.perf_counter()
+            rt.cancel(spin, force=True)
+            try:
+                rt.get(spin, timeout=60)
+                failures.append("force: the card task returned")
+            except rt.TaskCancelledError:
+                pass
+            t_err = time.perf_counter()
+            _wait_until(lambda: not _alive(spin_pid), 30,
+                        "force: the card task's exit", failures)
+            t_exit = time.perf_counter()
+            _wait_until(lambda: rt.available_resources()["GPU"] == gpu0, 30,
+                        "force: the card back", failures)
+            out["force"] = {
+                "spawn_to_running_s": t_cancel - t0, "gpu_before": gpu0,
+                "gpu_while_running": held,
+                "gpu_after": rt.available_resources()["GPU"],
+                "cancel_to_error_ms": (t_err - t_cancel) * 1e3,
+                "cancel_to_exit_ms": (t_exit - t_cancel) * 1e3}
+            if held != gpu0 - 1:
+                failures.append(f"force: GPU {held} while the task ran, "
+                                f"want {gpu0 - 1}")
+
+        # The actor, four call threads on one card.
+        t0 = time.perf_counter()
+        a = rt.remote(cs.StreamingLlama).options(
+            num_gpus=1, max_concurrency=4).remote()
+        gpu_ids, torch_card, pid = rt.get(a.context.remote(), timeout=600)
+        pids.append(pid)
+        out["actor_spawn_to_ready_s"] = time.perf_counter() - t0
+        # A fresh actor's first generate pays CUDA's lazy loads (PERF.md
+        # section 5): one generate first, so the arms read a warm engine.
+        t0 = time.perf_counter()
+        if rt.get(a.generate.remote(-1, prompts[5]),
+                  timeout=600) != witness[5]:
+            failures.append("warm: the first generate differs from the "
+                            "witness's")
+        out["actor_first_generate_ms"] = (time.perf_counter() - t0) * 1e3
+        card = api.runtime().actor_info(a._actor_id)["card"]
+        if gpu_ids != [str(card)] or torch_card != card:
+            failures.append(f"context: accelerator ids {gpu_ids}, torch "
+                            f"card {torch_card}, the core gave card {card}")
+        tracing.setup_tracing()
+        try:
+            with tracing.start_span("core_stream") as root:
+                inside = rt.get(a.trace_id.remote(), timeout=60)
+        finally:
+            os.environ.pop("RTPU_TRACING", None)
+        if inside != root.context.trace_id:
+            failures.append(f"spans: the call's trace {inside!r}, the "
+                            f"driver's {root.context.trace_id!r}")
+        out["context"] = {"accelerator_ids": gpu_ids, "card": card,
+                          "span_shares_trace": inside ==
+                          root.context.trace_id}
+
+        # Arm 2: four streams on four threads, read round-robin.
+        k0 = rt.get(a.counts.remote(), timeout=60)["launches"]
+        t_submit = []
+        gens = []
+        for i in CORE_STREAMS:
+            t_submit.append(time.time())
+            gens.append(a.stream_tokens.options(
+                num_returns="streaming").remote(f"s{i}", prompts[i]))
+        got = [[] for _ in CORE_STREAMS]
+        arrive = [[] for _ in CORE_STREAMS]
+        live = list(range(len(CORE_STREAMS)))
+        while live:
+            for j in list(live):
+                try:
+                    ref = next(gens[j])
+                except StopIteration:
+                    live.remove(j)
+                    continue
+                got[j].append(rt.get(ref, timeout=120))
+                arrive[j].append(time.time())
+        recs = [rt.get(a.record.remote(f"s{i}"), timeout=60)
+                for i in CORE_STREAMS]
+        stream_launches = rt.get(a.counts.remote(),
+                                 timeout=60)["launches"] - k0
+        for j, i in enumerate(CORE_STREAMS):
+            if got[j] != witness[i]:
+                failures.append(f"streams: stream {i}'s tokens differ from "
+                                f"the witness's: {got[j][:8]} vs "
+                                f"{witness[i][:8]}")
+            if not arrive[j] or arrive[j][0] >= recs[j]["end"]:
+                failures.append(f"streams: stream {i}'s first item was not "
+                                "read while its call ran")
+        if max(r["start"] for r in recs) >= min(r["end"] for r in recs):
+            failures.append("streams: the four calls did not overlap")
+        if max(r["max_busy"] for r in recs) != NUM_SLOTS:
+            failures.append(f"streams: at most "
+                            f"{max(r['max_busy'] for r in recs)} slots busy")
+        if stream_launches != cfg.n_layers * len(CORE_STREAMS):
+            failures.append(f"streams: K1 launches {stream_launches}, want "
+                            f"{cfg.n_layers} a prompt")
+        gaps = [(b - a_) * 1e3 for ts in arrive
+                for a_, b in zip(ts[len(ts) // 2:], ts[len(ts) // 2 + 1:])]
+        rtts = [s * 1e3 for r in recs for s in r["rtt_s"]]
+        out["streams"] = {
+            "prompt_lens": [len(prompts[i]) for i in CORE_STREAMS],
+            "buckets": [bucket_len(len(prompts[i]), MAX_PROMPT)
+                        for i in CORE_STREAMS],
+            "submit_to_first_item_ms": [(ts[0] - t) * 1e3 for ts, t in
+                                        zip(arrive, t_submit)],
+            "gap_ms_median_second_half": statistics.median(gaps),
+            "gap_ms_max_second_half": max(gaps),
+            "item_round_trip_ms_median": statistics.median(rtts),
+            "item_round_trip_ms_p90": sorted(rtts)[int(0.9 * len(rtts))],
+            "call_s": [r["end"] - r["start"] for r in recs],
+            "max_slots_busy": max(r["max_busy"] for r in recs),
+            "k1_launches": stream_launches,
+            "tokens_equal_witness": [g == witness[i] for g, i in
+                                     zip(got, CORE_STREAMS)]}
+
+        # Arm 3: backpressure, read slowly.
+        k = 4
+        gen = a.stream_tokens.options(
+            num_returns="streaming",
+            _generator_backpressure_num_objects=CORE_WINDOW).remote(
+                "bp", prompts[k])
+        bp, ahead = [], []
+        for n, ref in enumerate(gen, 1):
+            bp.append(rt.get(ref, timeout=60))
+            if n <= CORE_SLOW_READS:
+                time.sleep(CORE_SLOW_READ_S)
+                ahead.append(rt.get(a.acked.remote("bp"), timeout=60) - n)
+        if bp != witness[k]:
+            failures.append("backpressure: the tokens differ from the "
+                            "witness's")
+        if max(ahead) > CORE_WINDOW or max(ahead) < CORE_WINDOW - 1:
+            failures.append(f"backpressure: the producer ran "
+                            f"{max(ahead)} ahead, window {CORE_WINDOW}")
+        out["backpressure"] = {"window": CORE_WINDOW,
+                               "ahead_after_each_slow_read": ahead,
+                               "tokens_equal_witness": bp == witness[k]}
+
+        # Arm 4: a stream closed after CORE_CLOSE_AFTER tokens.
+        gen = a.stream_tokens.options(num_returns="streaming").remote(
+            "close", prompts[k])
+        head = [rt.get(next(gen), timeout=60)
+                for _ in range(CORE_CLOSE_AFTER)]
+        t_close = time.monotonic()
+        gen.close()
+        freed = None
+        if _wait_until(lambda: rt.get(a.record.remote("close"),
+                                      timeout=60)["end"] is not None, 10,
+                       "close: the producer's finally", failures):
+            freed = [e for e in rt.get(a.counts.remote(), timeout=60)[
+                "ended_early"] if e[1] == "close"]
+        busy = rt.get(a.busy.remote(), timeout=60)
+        if head != witness[k][:CORE_CLOSE_AFTER]:
+            failures.append("close: the tokens read differ from the "
+                            "witness's")
+        # Serve's measure: engine steps from when the producer learned of
+        # the close (its next report answered closed) to the free slot.
+        told = rt.get(a.record.remote("close"), timeout=60)["told_closed"]
+        ticks = (rt.get(a.ticks_between.remote(told, freed[0][2]),
+                        timeout=60) if freed and told else None)
+        if not freed or told is None or ticks > 1 or busy != 0:
+            failures.append(f"close: the slot freed {freed}, {ticks} "
+                            f"engine steps after the producer's closed "
+                            f"report ({told}), {busy} busy")
+        # From the consumer's close: one step until the producer's next
+        # report hears of it, one for the step in flight when it aborts.
+        ticks_close = (rt.get(a.ticks_between.remote(t_close, freed[0][2]),
+                              timeout=60) if freed else None)
+        if ticks_close is None or ticks_close > 2:
+            failures.append(f"close: the slot freed {ticks_close} engine "
+                            f"steps after the consumer's close, want <= 2")
+        if freed and told:
+            out["close"] = {
+                "close_to_free_ms": (freed[0][2] - t_close) * 1e3,
+                "close_to_told_ms": (told - t_close) * 1e3,
+                "ticks_close_to_free": ticks_close,
+                "ticks_until_free": ticks, "slots_busy_after": busy}
+
+        # Arm 5: cancels and a deadline.
+        r = a.generate.remote(0, prompts[4], marker)
+        _wait_until(lambda: 0 in _marker_ids(marker)
+                    and rt.get(a.busy.remote(), timeout=60) == 1, 60,
+                    "cancel: the running generate's start", failures)
+        time.sleep(0.2)
+        t_cancel = time.perf_counter()
+        rt.cancel(r)
+        try:
+            rt.get(r, timeout=60)
+            failures.append("cancel: the running generate returned")
+        except rt.TaskCancelledError:
+            pass
+        running_ms = (time.perf_counter() - t_cancel) * 1e3
+        _wait_until(lambda: rt.get(a.busy.remote(), timeout=60) == 0, 5,
+                    "cancel: the running generate's slot", failures)
+        four = [a.generate.remote(i, prompts[i], marker) for i in (1, 2, 3, 4)]
+        _wait_until(lambda: {1, 2, 3, 4} <= set(_marker_ids(marker)), 60,
+                    "cancel: four generates running", failures)
+        fifth = a.generate.remote(5, prompts[0], marker)
+        late = a.generate.options(deadline_s=CORE_DEADLINE_S).remote(
+            6, prompts[0], marker)
+        time.sleep(0.05)
+        t_cancel = time.perf_counter()
+        rt.cancel(fifth)
+        try:
+            rt.get(fifth, timeout=60)
+            failures.append("cancel: the queued generate returned")
+        except rt.TaskCancelledError:
+            pass
+        queued_ms = (time.perf_counter() - t_cancel) * 1e3
+        fours = rt.get(four, timeout=120)
+        for i, toks in zip((1, 2, 3, 4), fours):
+            if toks != witness[i]:
+                failures.append(f"cancel: generate {i} differs from the "
+                                "witness")
+        try:
+            rt.get(late, timeout=60)
+            failures.append("deadline: the late generate returned")
+        except rt.DeadlineExceededError:
+            pass
+        ran = _marker_ids(marker)
+        if 5 in ran or 6 in ran:
+            failures.append(f"cancel/deadline: generates {ran} started")
+        gen_ms = rt.get(a.stats.remote(), timeout=60)["generate_ms"]
+        if queued_ms > 0.5 * min(gen_ms):
+            failures.append(f"cancel: the queued generate failed after "
+                            f"{queued_ms:.1f} ms: it waited")
+        before = len(rt.get(a.counts.remote(), timeout=60)["ended_early"])
+        task = rt.remote(cs.two_generates).remote(a, [prompts[1],
+                                                      prompts[2]], marker)
+        _wait_until(lambda: {7, 8} <= set(_marker_ids(marker))
+                    and rt.get(a.busy.remote(), timeout=60) == 2, 60,
+                    "recursive: both generates running", failures)
+        t_cancel = time.perf_counter()
+        rt.cancel(task, recursive=True)
+        try:
+            rt.get(task, timeout=60)
+            failures.append("recursive: the task returned")
+        except rt.TaskCancelledError:
+            pass
+        _wait_until(lambda: rt.get(a.busy.remote(), timeout=60) == 0, 10,
+                    "recursive: the generates' slots", failures)
+        recursive_ms = (time.perf_counter() - t_cancel) * 1e3
+        stopped = [e for e in rt.get(a.counts.remote(), timeout=60)[
+            "ended_early"][before:] if e[0] == "generate"]
+        if sorted(e[1] for e in stopped) != [7, 8]:
+            failures.append(f"recursive: stopped {stopped}, want "
+                            "generates 7 and 8")
+        out["cancel"] = {"running_cancel_to_error_ms": running_ms,
+                         "queued_cancel_to_error_ms": queued_ms,
+                         "recursive_cancel_to_free_ms": recursive_ms,
+                         "generate_ms_in_actor": gen_ms,
+                         "deadline_s": CORE_DEADLINE_S}
+
+        counts = rt.get(a.counts.remote(), timeout=60)
+        launches = counts["launches"]
+        if launches != cfg.n_layers * counts["prefills"]:
+            failures.append(f"K1 launches {launches} in the actor, want "
+                            f"{cfg.n_layers} x {counts['prefills']} "
+                            "prefills")
+        out["k1_launches"] = launches
+        out["prefills"] = counts["prefills"]
+        segments = _runtime_segments()
+        rt.kill(a)
+    finally:
+        rt.shutdown()
+    left = _pids_left(pids, within_s=10.0)
+    children = [c.name for c in __import__("multiprocessing")
+                .active_children() if c.name.startswith("rtpt-")]
+    cores_after = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                             "rtpt-core-*")))
+    shm_left = {n for n in segments - segments_before
+                if os.path.exists(os.path.join("/dev/shm", n))}
+    shutil.rmtree(td, ignore_errors=True)
+    if left or children or (cores_after - cores_before) or shm_left:
+        failures.append(f"left behind: pids {left}, children {children}, "
+                        f"core dirs {sorted(cores_after - cores_before)}, "
+                        f"/dev/shm {sorted(shm_left)}")
+    emit("core_stream", ok=not failures, failures=failures,
+         model="llama3_8b", card=card_line(),
+         phase_s=time.perf_counter() - t_phase, **out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
 
 
 def _launch_counts(fa):
@@ -7038,6 +7627,8 @@ def main() -> int:
     mpmd_launches = phase_mpmd_pipe(cfg, params)
     gc_collect()
     workflow_launches = phase_workflow_llm(cfg, prompts, outs, tick_s, eng)
+    gc_collect()
+    core_launches = phase_core_stream(cfg, prompts, outs, tick_s, prefill_ms)
     # The serving model leaves the card before training starts.
     del cfg, params, eng
     gc_collect()
@@ -7080,7 +7671,8 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:47",
         "launches": (serve_launches + serve_deploy + mpmd_launches
-                     + workflow_launches + train_launches["flash_fwd"]
+                     + workflow_launches + core_launches
+                     + train_launches["flash_fwd"]
                      + moe_launches["flash_fwd"] + moe_serve_launches
                      + dist_launches["flash_fwd"] + vit_launches
                      + data_launches + glue_launches["flash_fwd"]
@@ -7090,6 +7682,7 @@ def main() -> int:
                              "serve_deploy": serve_deploy,
                              "mpmd_pipe": mpmd_launches,
                              "workflow_llm": workflow_launches,
+                             "core_stream": core_launches,
                              "train": train_launches["flash_fwd"],
                              "moe_train": moe_launches["flash_fwd"],
                              "moe_serve": moe_serve_launches,

@@ -15,9 +15,14 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 # loads none of them.
 _CORE_API = ("init", "shutdown", "is_initialized", "remote", "get", "put",
              "wait", "kill", "get_actor", "cluster_resources", "method",
-             "exit_actor", "ActorClass", "ActorHandle", "RemoteFunction",
-             "RayTpuError", "TaskError", "GetTimeoutError", "ActorDiedError",
-             "WorkerCrashedError")
+             "exit_actor", "cancel", "free", "error_of",
+             "get_runtime_context", "available_resources", "nodes",
+             "ActorClass", "ActorHandle", "RemoteFunction",
+             "ObjectRefGenerator", "RuntimeContext", "RayTpuError",
+             "TaskError", "GetTimeoutError", "ActorDiedError",
+             "WorkerCrashedError", "TaskCancelledError",
+             "DeadlineExceededError", "ObjectLostError", "DependencyError",
+             "OutOfMemoryError", "NodePreemptedError")
 
 
 def __getattr__(name):

@@ -45,18 +45,49 @@ again, up to n times) and ``retry_exceptions`` (an error the task raised
 is retried too) are the JAX package's; ``catch_exceptions`` is carried
 for workflows (``workflow/executor.py``) and not acted on here. An actor
 with ``async def`` methods runs every call on one event loop of its own
-(``core/worker.py``), up to ``max_concurrency`` (default 100) at once.
+(``core/worker.py``), up to ``max_concurrency`` (default 100) at once;
+its sync methods, and every method of a sync actor, run on
+``max_concurrency`` threads of its process (default 1, in order).
 
-Divergences by design (this slice): one host; functions, classes and
-arguments go by plain pickle, by reference, so a nested class or
-function, a closure or a lambda raises ``TypeError`` naming itself
-before any spawn; ``max_concurrency`` above 1 on an actor without async
-methods raises before any spawn (the JAX package runs its sync calls on
-that many mailbox threads).
+The rest of the JAX package's core API on one host:
+
+- ``cancel(ref, force=False, recursive=False)``: a task or actor call
+  still queued in the driver fails there at once with
+  ``TaskCancelledError``; one queued in its process is answered by that
+  process's pipe reader without waiting for the calls ahead of it; a
+  running one gets the error raised in its own thread. ``force`` stops a
+  task's worker process (the pool frees its card and spawns another when
+  one is needed); on an actor call it degrades to the raise.
+  ``recursive`` also cancels what the task or call submitted from its
+  process, through a parent that has finished. Cancelling twice, or a
+  finished ref, does nothing.
+- ``deadline_s`` (a task option, and ``ActorMethod.options``): past it, a
+  call that has not started fails with ``DeadlineExceededError`` where it
+  leaves the driver's queue or where its process dequeues it.
+- ``num_returns="streaming"`` returns an :class:`ObjectRefGenerator`:
+  each value the generator yields becomes an object of the driver,
+  reported at once; the driver holds back its answer to the producer
+  while the consumer lags more than ``_generator_backpressure_num_objects``
+  (16) items, without blocking its reader (the answer is sent when the
+  consumer catches up); ``close()`` makes the producer's next report
+  answer ``closed``, and it closes its generator.
+- ``free``, ``error_of``, ``get_runtime_context``,
+  ``available_resources`` and ``nodes`` (one node).
+- With tracing on (``util/tracing.py``), each submission records a
+  PRODUCER span and carries its context; the task or call runs in a
+  CONSUMER span of the same trace.
+
+Divergences by design: one host; functions, classes and arguments go by
+plain pickle, by reference, so a nested class or function, a closure or
+a lambda raises ``TypeError`` naming itself before any spawn; a running
+call that a cancel stopped fails with ``TaskCancelledError`` itself (the
+JAX package wraps it in ``TaskError``); ``get_accelerator_ids()`` names
+the card under ``"GPU"``.
 """
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import itertools
 import logging
 import multiprocessing
@@ -77,13 +108,16 @@ from ..util import procs
 from . import context as ctx
 from . import serialization
 from . import worker as core_worker
-from .ids import ActorID, ObjectID
+from .ids import ActorID, NodeID, ObjectID, TaskID
 from .serialization import ObjectRef
 
 logger = logging.getLogger(__name__)
 
 TASK_OPTIONS = ("num_cpus", "num_gpus", "num_returns", "name",
-                "max_retries", "retry_exceptions", "catch_exceptions")
+                "max_retries", "retry_exceptions", "catch_exceptions",
+                "deadline_s", "_generator_backpressure_num_objects")
+# Items a streaming generator's producer may run ahead of its consumer.
+BACKPRESSURE_DEFAULT = 16
 ACTOR_OPTIONS = ("num_cpus", "num_gpus", "name", "max_restarts",
                  "max_task_retries", "checkpoint_interval_s",
                  "checkpoint_every_n", "max_concurrency", "_preload")
@@ -103,9 +137,37 @@ class WorkerCrashedError(RayTpuError):
     """The task worker running a task died."""
 
 
+class NodePreemptedError(WorkerCrashedError):
+    """The node left on a planned departure (the JAX package's drain and
+    preemption; the port's one node never raises it)."""
+
+    preempted = True
+
+
 class ActorDiedError(RayTpuError):
     """The actor is dead: killed, retired by ``exit_actor``, its
     constructor raised, or its process died with no restart left."""
+
+
+class OutOfMemoryError(RayTpuError):
+    """A worker was killed to relieve host memory (the JAX package's
+    memory monitor; the port has none yet)."""
+
+
+class TaskCancelledError(RayTpuError):
+    """The task or actor call was cancelled by :func:`cancel`."""
+
+
+class DeadlineExceededError(RayTpuError, TimeoutError):
+    """The call's deadline (``deadline_s``) passed before it started."""
+
+
+class ObjectLostError(RayTpuError):
+    """An object's value is gone and cannot be made again."""
+
+
+class DependencyError(RayTpuError):
+    """A task's argument is an object whose task failed."""
 
 
 class TaskError(RayTpuError):
@@ -159,7 +221,8 @@ class _Call:
 
     __slots__ = ("kind", "label", "fn", "method", "args", "kwargs", "oids",
                  "num_returns", "key", "cpus", "card_ask", "seq", "proc",
-                 "reply", "retries", "retry_exceptions", "blocked")
+                 "reply", "retries", "retry_exceptions", "blocked", "actor",
+                 "wire", "deadline", "gen", "children", "cancelled", "done")
 
     def __init__(self, kind, label, args, kwargs, oids, num_returns):
         self.kind = kind  # "task" | "actor" | "control"
@@ -179,6 +242,38 @@ class _Call:
         self.retries = 0  # runs left after a worker death (max_retries)
         self.retry_exceptions = False
         self.blocked = 0  # its worker's gets and waits not yet answered
+        self.actor: Optional["_Actor"] = None
+        # What the call's process gets beside its arguments
+        # (``core/worker.py``): task id, label, deadline, stream, trace.
+        self.wire: Dict[str, Any] = {}
+        self.deadline: Optional[float] = None  # time.time() of deadline_s
+        self.gen: Optional["_Gen"] = None  # a streaming call's stream
+        self.children: List["_Call"] = []  # what it submitted (cancel)
+        self.cancelled = False
+        self.done = False
+
+
+class _Gen:
+    """A streaming call's items on their way to the consumer (the JAX
+    controller's generator state): each item an object the stream holds
+    until its ref is handed out. The producer's report waits (``waiting``:
+    its process and request) while more than ``window`` items are ahead of
+    the consumer; children's ``next`` requests wait in ``nexts``."""
+
+    __slots__ = ("gid", "items", "consumed", "released", "window", "done",
+                 "error", "closed", "waiting", "nexts")
+
+    def __init__(self, gid: str, window: int):
+        self.gid = gid
+        self.items: List[str] = []
+        self.consumed = 0  # items handed to the consumer
+        self.released = 0  # leading items whose hold the stream let go
+        self.window = window
+        self.done = False
+        self.error: Optional[BaseException] = None
+        self.closed = False
+        self.waiting: Optional[Tuple["_Proc", int]] = None
+        self.nexts: List[Tuple["_Proc", int, int]] = []
 
 
 class _UpWait:
@@ -240,6 +335,14 @@ class _Runtime:
         self.cards_used: set = set()
         self.actors: Dict[str, _Actor] = {}
         self.names: Dict[str, str] = {}
+        # Object id (or stream id) -> the call that makes it, while a ref
+        # to it lives: what cancel reaches, finished or not.
+        self.producers: Dict[str, _Call] = {}
+        self.gens: Dict[str, _Gen] = {}
+        # Streams closed by their consumer in this process, handled by the
+        # reader (a close may run in __del__, on any thread).
+        self.closes: "queue.SimpleQueue[str]" = queue.SimpleQueue()
+        self.node_id = NodeID.generate()
         self.spill_dir = tempfile.mkdtemp(prefix="rtpt-core-")
         self.forked = False
         self._stopped = False
@@ -297,6 +400,7 @@ class _Runtime:
                 return
             self.holds.pop(oid, None)
             self.objects.pop(oid, None)
+            self.producers.pop(oid, None)
 
     def _borrow(self, p: _Proc, oids: Iterable[str]) -> None:
         """``p`` was sent these refs (called with ``cv`` held)."""
@@ -393,12 +497,10 @@ class _Runtime:
     # ------------------------------------------------------------- tasks
 
     def submit_task(self, fn: Callable, label: str, args, kwargs,
-                    opts: Dict[str, Any]) -> List[ObjectRef]:
-        num_returns = int(opts.get("num_returns", 1))
+                    opts: Dict[str, Any], parent: Optional[_Call] = None
+                    ) -> Union[List[ObjectRef], "ObjectRefGenerator"]:
         with self.cv:
-            refs = [self.new_ref() for _ in range(num_returns)]
-            call = _Call("task", label, args, kwargs,
-                         [r.object_id for r in refs], num_returns)
+            call = _Call("task", label, args, kwargs, [], 1)
             call.fn = fn
             call.cpus = float(opts.get("num_cpus", 1) or 0)
             call.card_ask = int(opts.get("num_gpus", 0) or 0)
@@ -407,20 +509,57 @@ class _Runtime:
             if call.cpus > self.num_cpus:
                 raise ValueError(f"{label} asks num_cpus={call.cpus}, more "
                                  f"than the {self.num_cpus} of this core")
+            out = self._outputs(call, opts, parent)
             self.tasks.append(call)
             self._dispatch()
+        return out
+
+    def _outputs(self, call: _Call, opts: Dict[str, Any],
+                 parent: Optional[_Call]
+                 ) -> Union[List[ObjectRef], "ObjectRefGenerator"]:
+        """The call's refs, or its stream; its wire, deadline and parent
+        (called with ``cv`` held)."""
+        call.wire = {"task_id": TaskID.generate(), "label": call.label}
+        if opts.get("_trace"):
+            call.wire["trace_ctx"] = opts["_trace"]
+        if opts.get("deadline_s") is not None:
+            call.deadline = time.time() + float(opts["deadline_s"])
+            call.wire["deadline"] = call.deadline
+        if parent is not None:
+            parent.children.append(call)
+        if opts.get("num_returns", 1) == "streaming":
+            gid = ObjectID.generate()
+            call.num_returns = 0
+            call.gen = _Gen(gid, int(
+                opts.get("_generator_backpressure_num_objects")
+                or BACKPRESSURE_DEFAULT))
+            call.wire["stream"] = gid
+            self.gens[gid] = call.gen
+            self.producers[gid] = call
+            return ObjectRefGenerator(gid)
+        call.num_returns = int(opts.get("num_returns", 1))
+        refs = [self.new_ref() for _ in range(call.num_returns)]
+        call.oids = [r.object_id for r in refs]
+        for oid in call.oids:
+            self.producers[oid] = call
         return refs
 
     def _deps_state(self, call: _Call) -> Optional[Tuple[str, Any]]:
         """None while a top-level ref argument is pending, ("err", e) for a
-        failed one, else ("ok", None)."""
+        failed one (a task's ``DependencyError``, an actor call's
+        ``TaskError`` around the upstream error, as the JAX package
+        raises), else ("ok", None)."""
         for v in itertools.chain(call.args, call.kwargs.values()):
             if isinstance(v, ObjectRef):
                 got = self.objects.get(v.object_id)
                 if got is None:
                     return None
                 if got[0] == "err":
-                    return got
+                    if call.kind == "task":
+                        return "err", DependencyError(
+                            f"upstream task failed for object "
+                            f"{v.object_id[:8]}")
+                    return "err", TaskError(call.label, got[1])
         return ("ok", None)
 
     def _resolved(self, call: _Call) -> Tuple[Tuple, Dict[str, Any]]:
@@ -440,7 +579,7 @@ class _Runtime:
             return idle.pop()
         p = _Proc(multiprocessing.get_context("spawn"),
                   core_worker._task_main,
-                  (card, self.spill_dir, dict(os.environ)),
+                  (card, self.spill_dir, dict(os.environ), self.node_id),
                   f"rtpt-task-{len(self.task_procs)}", card)
         self.task_procs.append(p)
         self._wake()
@@ -450,12 +589,16 @@ class _Runtime:
         """Send every task and actor call whose arguments are ready and
         whose resources are free (called with ``cv`` held)."""
         for call in list(self.tasks):
+            if _expired(call):
+                self.tasks.remove(call)
+                self._finish(call, "err", _deadline_error(call))
+                continue
             deps = self._deps_state(call)
             if deps is None:
                 continue
             if deps[0] == "err":
                 self.tasks.remove(call)
-                self._settle_all(call, "err", deps[1])
+                self._finish(call, "err", deps[1])
                 continue
             if self.cpus_used + call.cpus > self.num_cpus:
                 continue
@@ -467,7 +610,7 @@ class _Runtime:
             self.tasks.remove(call)
             self.cpus_used += call.cpus
             p = self._task_proc(card)
-            self._send(p, call, "run", (call.fn,))
+            self._send(p, call, "run", (call.fn, call.wire))
         for actor in self.actors.values():
             self._dispatch_actor(actor)
         self.cv.notify_all()
@@ -534,10 +677,14 @@ class _Runtime:
         opts = {k: a.opts.get(k) for k in (
             "max_task_retries", "checkpoint_every_n",
             "checkpoint_interval_s", "max_concurrency")}
+        opts["wire"] = {"label": f"{a.cls.__qualname__}.__init__",
+                        "actor_id": a.actor_id}
+        if a.opts.get("_trace"):
+            opts["wire"]["trace_ctx"] = a.opts["_trace"]
         a.incarnation += 1
         a.proc = _Proc(context, core_worker._core_actor_main,
                        (a.payload, a.actor_id, a.card, opts, restore,
-                        self.spill_dir, dict(os.environ)),
+                        self.spill_dir, dict(os.environ), self.node_id),
                        f"rtpt-actor-{a.cls.__name__}-{a.actor_id[:8]}",
                        a.card)
         self._borrow(a.proc, a.payload_refs)
@@ -545,22 +692,24 @@ class _Runtime:
         self._wake()
 
     def submit_call(self, actor_id: str, method: str, args, kwargs,
-                    num_returns: int) -> List[ObjectRef]:
+                    opts: Dict[str, Any], parent: Optional[_Call] = None
+                    ) -> Union[List[ObjectRef], "ObjectRefGenerator"]:
         with self.cv:
             a = self.actors[actor_id]
             label = f"{a.cls.__qualname__}.{method}"
-            refs = [self.new_ref() for _ in range(num_returns)]
-            call = _Call("actor", label, args, kwargs,
-                         [r.object_id for r in refs], num_returns)
+            call = _Call("actor", label, args, kwargs, [], 1)
             call.method = method
+            call.actor = a
             call.key = next(a.next_key)
+            out = self._outputs(call, opts, parent)
+            call.wire["actor_id"] = actor_id
             if a.state == "dead":
-                self._settle_all(call, "err", self._died(a))
-                return refs
+                self._finish(call, "err", self._died(a))
+                return out
             a.pending.append(call)
             self._dispatch_actor(a)
             self.cv.notify_all()
-        return refs
+        return out
 
     def _died(self, a: _Actor) -> ActorDiedError:
         return ActorDiedError(f"actor {a.cls.__qualname__} "
@@ -571,14 +720,19 @@ class _Runtime:
             return
         while a.pending:
             call = a.pending[0]
+            if _expired(call):
+                a.pending.popleft()
+                self._finish(call, "err", _deadline_error(call))
+                continue
             deps = self._deps_state(call)
             if deps is None:
                 return
             a.pending.popleft()
             if deps[0] == "err":
-                self._settle_all(call, "err", deps[1])
+                self._finish(call, "err", deps[1])
                 continue
-            self._send(a.proc, call, "call", (call.method, call.key))
+            self._send(a.proc, call, "call", (call.method, call.key,
+                                              call.wire))
 
     def control(self, actor_id: str, method: str, *args,
                 timeout: Optional[float] = 30.0) -> Any:
@@ -712,6 +866,9 @@ class _Runtime:
             if self._wake_r in ready:
                 while self._wake_r.poll():
                     self._wake_r.recv_bytes()
+            closes = []
+            while not self.closes.empty():
+                closes.append(self.closes.get_nowait())
             got: List[Tuple[_Proc, Tuple]] = []
             for o in ready:
                 if o in by_conn:
@@ -720,6 +877,8 @@ class _Runtime:
             for p in dead:
                 got += self._read_all(p)
             with self.cv:
+                for gid in closes:
+                    self.gen_close(gid)
                 for p, reply in got:
                     if reply[0] == "up":
                         self._on_request(p, *reply[1:])
@@ -821,11 +980,62 @@ class _Runtime:
             p.answer(rid, "err", _portable(e))
 
     def _up_submit_task(self, p, rid, fn, label, args, kwargs, opts):
-        return self.submit_task(fn, label, args, kwargs, opts)
+        parent = p.calls.get(opts.pop("_parent", None))
+        return self.submit_task(fn, label, args, kwargs, opts, parent)
 
     def _up_submit_call(self, p, rid, actor_id, method, args, kwargs,
-                        num_returns):
-        return self.submit_call(actor_id, method, args, kwargs, num_returns)
+                        opts):
+        parent = p.calls.get(opts.pop("_parent", None))
+        return self.submit_call(actor_id, method, args, kwargs, opts,
+                                parent)
+
+    def _up_cancel(self, p, rid, key, force, recursive):
+        self.cancel(key, force, recursive)
+
+    def _up_gen_item(self, p, rid, gid, value):
+        """A streaming call's next item (``core/worker.py`` ``_stream``):
+        stored as an object the stream holds; the answer, ``ok`` or
+        ``closed``, waits while the consumer lags past the window."""
+        gen = self.gens.get(gid)
+        if gen is None or gen.closed:
+            return "closed"
+        if isinstance(value, procs.Spilled):
+            value = value.load()
+        oid = ObjectID.generate()
+        self._hold(oid)
+        self._settle(oid, "ok", value)
+        gen.items.append(oid)
+        self._serve_gen_nexts(gen)
+        self.cv.notify_all()
+        if len(gen.items) - gen.consumed > gen.window:
+            gen.waiting = (p, rid)
+            return _LATER
+        return "ok"
+
+    def _up_gen_next(self, p, rid, gid, index):
+        gen = self.gens.get(gid)
+        if gen is None:
+            return "done", None
+        got = self._gen_take(gen, index, p)
+        if got is None:
+            gen.nexts.append((p, rid, index))
+            return _LATER
+        return got
+
+    def _up_gen_close(self, p, rid, gid):
+        self.gen_close(gid)
+
+    def _up_free(self, p, rid, oids):
+        self.free(oids)
+
+    def _up_error_of(self, p, rid, oid):
+        return self.error_of(oid)
+
+    def _up_available_resources(self, p, rid):
+        return self.available_resources()
+
+    def _up_nodes(self, p, rid):
+        return self.nodes()
 
     def _up_create_actor(self, p, rid, wrapper, args, kwargs, opts,
                          methods):
@@ -901,28 +1111,88 @@ class _Runtime:
         self._give_back(p, counts)
 
     def _up_cluster_resources(self, p, rid):
+        return self.cluster_resources()
+
+    # ------------------------------------------------ objects and the node
+
+    def free(self, oids: Iterable[str]) -> None:
+        """Drop the values of ``oids``: a later ``get`` waits for a value
+        that will not come (``GetTimeoutError`` past its timeout)."""
+        with self.cv:
+            for oid in oids:
+                self.objects.pop(oid, None)
+
+    def error_of(self, oid: str) -> Optional[BaseException]:
+        """The error a ready object holds, None for a value, read from
+        the table without moving the value."""
+        with self.cv:
+            got = self.objects.get(oid)
+        if got is None:
+            raise GetTimeoutError(f"object {oid[:8]} is not ready")
+        return got[1] if got[0] == "err" else None
+
+    def cluster_resources(self) -> Dict[str, float]:
         return {"CPU": float(self.num_cpus), "GPU": float(self.num_gpus())}
+
+    def available_resources(self) -> Dict[str, float]:
+        """CPU and GPU less what tasks and actors hold now."""
+        with self.cv:
+            return {"CPU": float(self.num_cpus) - self.cpus_used,
+                    "GPU": float(self.num_gpus() - len(self.cards_used))}
+
+    def nodes(self) -> List[Dict[str, Any]]:
+        """The one node, with the keys of the JAX package's node entries
+        (``tpu_free`` lists the free cards)."""
+        with self.cv:
+            n = self.num_gpus()
+            free = [c for c in range(n) if c not in self.cards_used]
+            workers = len(self._live())
+        spill = [os.path.join(self.spill_dir, f)
+                 for f in os.listdir(self.spill_dir)]
+        return [{"node_id": self.node_id,
+                 "resources": self.cluster_resources(),
+                 "available": self.available_resources(),
+                 "labels": {}, "alive": True, "state": "alive",
+                 "drain_reason": None, "index": 0, "num_workers": workers,
+                 "mem_fraction": _mem_fraction(),
+                 "cpu_percent": None, "tpu_free": free, "proc_stats": {},
+                 "arena": {},
+                 "spill": {"files": len(spill), "bytes": sum(
+                     os.path.getsize(f) for f in spill
+                     if os.path.isfile(f))},
+                 "channels": {}}]
 
     def _finish(self, call: _Call, status: str, value: Any) -> None:
         if call.kind == "control":
             call.reply = (status, value)
             return
+        if call.done:
+            return  # answered already (a cancel raced its end)
+        err = None
         if status == "err":
             err = value if isinstance(value, BaseException) else TaskError(
                 call.label, RuntimeError(str(value)), str(value))
-            self._settle_all(call, "err", err)
+        elif isinstance(value, core_worker.Refused):
+            err = value.exc
         elif isinstance(value, core_worker.Raised):
-            self._settle_all(call, "err",
-                             TaskError(call.label, value.exc, value.tb))
+            err = (value.exc if call.cancelled and isinstance(
+                value.exc, TaskCancelledError)
+                else TaskError(call.label, value.exc, value.tb))
         elif isinstance(value, core_worker.Exited):
             a = self._actor_of(call.proc) if call.proc else None
             if value.retired or a is None:
-                self._settle_all(call, "err", ActorDiedError(
-                    f"{call.label}: the actor exited"))
+                err = ActorDiedError(f"{call.label}: the actor exited")
             else:
-                self._settle_value(call, None if call.num_returns == 1
-                                   else (None,) * call.num_returns)
+                value = (None if call.num_returns == 1
+                         else (None,) * call.num_returns)
                 self._exit_actor(a)
+        call.done = True
+        # What only a retry needed; its children and stream stay.
+        call.fn = call.args = call.kwargs = None
+        if call.gen is not None:
+            self._gen_end(call.gen, err)
+        elif err is not None:
+            self._settle_all(call, "err", err)
         else:
             self._settle_value(call, value)
 
@@ -946,6 +1216,10 @@ class _Runtime:
         sent = sorted(p.calls.values(), key=lambda c: c.seq)
         p.calls.clear()
         self.upwaits = [w for w in self.upwaits if w.proc is not p]
+        for gen in self.gens.values():
+            gen.nexts = [n for n in gen.nexts if n[0] is not p]
+            if gen.waiting is not None and gen.waiting[0] is p:
+                gen.waiting = None
         self._give_back(p, None)
         try:
             self._on_death_of(p, sent)
@@ -961,6 +1235,11 @@ class _Runtime:
                     procs_.remove(p)
             for call in sent:
                 self._free_task(p, call)
+                if call.cancelled:  # cancel(force=True) stopped it
+                    self._finish(call, "err", TaskCancelledError(
+                        f"{call.label} was cancelled with force=True: its "
+                        f"task worker was stopped"))
+                    continue
                 if call.retries > 0:
                     self._retry(call)
                     continue
@@ -1007,6 +1286,132 @@ class _Runtime:
         self._retire(a)
         self._fail_actor_calls(a, calls)
 
+    # ------------------------------------------------------------ cancel
+
+    def cancel(self, key: str, force: bool, recursive: bool) -> None:
+        """Cancel the call that makes the object (or the stream) ``key``
+        and, with ``recursive``, every call it submitted, down the tree;
+        a finished call, or one cancelled already, is passed over."""
+        with self.cv:
+            call = self.producers.get(key)
+            seen: set = set()
+            todo = [call] if call is not None else []
+            while todo:
+                c = todo.pop()
+                if id(c) in seen:
+                    continue
+                seen.add(id(c))
+                self._cancel_one(c, force)
+                if recursive:
+                    todo.extend(c.children)
+            self._dispatch()
+
+    def _cancel_one(self, call: _Call, force: bool) -> None:
+        if call.done or call.cancelled:
+            return
+        call.cancelled = True
+        call.retries = 0  # a cancel must not bring it back
+        call.retry_exceptions = False
+        queued = (call in self.tasks if call.kind == "task"
+                  else call.actor is not None and call in call.actor.pending)
+        if queued:
+            (self.tasks if call.kind == "task"
+             else call.actor.pending).remove(call)
+            what = "task" if call.kind == "task" else "actor call"
+            self._finish(call, "err", TaskCancelledError(
+                f"{what} {call.wire['task_id'][:8]} was cancelled before "
+                f"it started"))
+            return
+        p = call.proc
+        if p is None or p.calls.get(call.seq) is not call:
+            return
+        if force and call.kind == "task":
+            p.proc.kill()  # the reader reaps it and fails the call
+            return
+        # Its process answers one that waits there at once, or raises the
+        # error in the thread that runs it (core/worker.py CALLS).
+        data = p.encode(("cancel", call.seq))
+        with p.lock:
+            try:
+                p.conn.send_bytes(data)
+            except OSError:
+                pass  # gone: its sentinel reports the death
+
+    # ----------------------------------------------------------- streams
+
+    def _gen_take(self, gen: _Gen, index: int, proc: Optional[_Proc]
+                  ) -> Optional[Tuple[str, Any]]:
+        """Item ``index`` of the stream for its consumer (``proc`` where it
+        is a child): ("item", ref), ("done", None), ("err", error), or None
+        while the item is not there yet (called with ``cv`` held)."""
+        if index < len(gen.items):
+            ref = self.adopt(gen.items[index])
+            gen.consumed = max(gen.consumed, index + 1)
+            while gen.released < gen.consumed:
+                self._unhold(gen.items[gen.released])
+                gen.released += 1
+            if gen.waiting is not None and (
+                    len(gen.items) - gen.consumed <= gen.window):
+                (p, rid), gen.waiting = gen.waiting, None
+                self._answer(p, rid, "ok", "ok")
+            return "item", ref
+        if not gen.done:
+            return None
+        self._gen_drop(gen)
+        if gen.error is not None:
+            return "err", gen.error
+        return "done", None
+
+    def gen_next(self, gid: str, index: int) -> Tuple[str, Any]:
+        """The driver's own consumer: waits for item ``index``."""
+        with self.cv:
+            while True:
+                gen = self.gens.get(gid)
+                if gen is None:
+                    return "done", None
+                got = self._gen_take(gen, index, None)
+                if got is not None:
+                    return got
+                self.cv.wait(0.5)
+
+    def _gen_end(self, gen: _Gen, err: Optional[BaseException]) -> None:
+        """The producer's call ended (with ``err`` where it failed)."""
+        gen.done = True
+        gen.error = err
+        self._serve_gen_nexts(gen)
+        if gen.closed:
+            self._gen_drop(gen)
+        self.cv.notify_all()
+
+    def _serve_gen_nexts(self, gen: _Gen) -> None:
+        for n in list(gen.nexts):
+            got = self._gen_take(gen, n[2], n[0])
+            if got is None:
+                continue
+            gen.nexts.remove(n)
+            self._answer(n[0], n[1], "ok", got)
+
+    def gen_close(self, gid: str) -> None:
+        """The consumer let the stream go: the producer's waiting report
+        and its next one answer ``closed``; the items not handed out go
+        (called with ``cv`` held)."""
+        gen = self.gens.get(gid)
+        if gen is None:
+            return
+        gen.closed = True
+        if gen.waiting is not None:
+            (p, rid), gen.waiting = gen.waiting, None
+            self._answer(p, rid, "ok", "closed")
+        self._gen_drop(gen)
+
+    def _gen_drop(self, gen: _Gen) -> None:
+        if self.gens.pop(gen.gid, None) is None:
+            return
+        self.producers.pop(gen.gid, None)
+        for oid in gen.items[gen.released:]:
+            self._unhold(oid)
+        gen.released = len(gen.items)
+
     # ---------------------------------------------------------- shutdown
 
     def shutdown(self) -> None:
@@ -1035,6 +1440,26 @@ class _Runtime:
         shutil.rmtree(self.spill_dir, ignore_errors=True)
         self._wake_r.close()
         self._wake_w.close()
+
+
+def _expired(call: _Call) -> bool:
+    return call.deadline is not None and time.time() > call.deadline
+
+
+def _deadline_error(call: _Call) -> DeadlineExceededError:
+    return DeadlineExceededError(
+        f"{call.label}: its deadline passed "
+        f"{time.time() - call.deadline:.3f} s before it started")
+
+
+def _mem_fraction() -> Optional[float]:
+    """The host memory in use, as a fraction (``/proc/meminfo``)."""
+    try:
+        with open("/proc/meminfo") as f:
+            kb = {line.split(":")[0]: int(line.split()[1]) for line in f}
+        return 1.0 - kb["MemAvailable"] / kb["MemTotal"]
+    except (OSError, KeyError, ValueError, IndexError):
+        return None
 
 
 def _portable(e: BaseException) -> BaseException:
@@ -1096,8 +1521,21 @@ class _Client:
     # ----------------------------------------------------------- the pipe
 
     def route(self, msg: Any) -> bool:
-        """Take an answer off the reader (``procs.serve``'s ``route``)."""
-        if type(msg) is not tuple or not msg or msg[0] != "down":
+        """Take an answer, or a cancel, off the reader (``procs.serve``'s
+        ``route``). A cancel of a call that has not started is answered
+        here, at once; a running one gets the error in its thread."""
+        if type(msg) is not tuple or not msg:
+            return False
+        if msg[0].__class__ is int:  # a call, on its way to the queue
+            core_worker.CALLS.expect(msg)
+            return False
+        if msg[0] == "cancel":
+            seq = msg[1]
+            refused = core_worker.CALLS.cancel(seq)
+            if refused is not None:
+                self._post((seq, "ok", refused))
+            return True
+        if msg[0] != "down":
             return False
         _, rid, status, value = msg
         with self._lock:
@@ -1122,11 +1560,13 @@ class _Client:
             self._waits[rid] = slot
         try:
             self._post(("up", rid, op, args, kwargs))
+            # In slices: a cancel raised into this thread lands between.
+            while not slot[0].wait(0.1):
+                pass
         except BaseException:
             with self._lock:
                 self._waits.pop(rid, None)
             raise
-        slot[0].wait()
         if slot[1] != "ok":
             raise slot[2]
         return slot[2]
@@ -1156,28 +1596,67 @@ class _Client:
             self._released.put((oid, entry[0]))
 
     def _release_loop(self) -> None:
+        """Tell the driver of released refs and of closed streams (a
+        stream's close may run in ``__del__``, on any thread)."""
         while True:
             counts: Dict[str, int] = {}
+            closes: List[str] = []
             oid, n = self._released.get()
             while True:
-                counts[oid] = counts.get(oid, 0) + n
+                if n is None:
+                    closes.append(oid)
+                else:
+                    counts[oid] = counts.get(oid, 0) + n
                 try:
                     oid, n = self._released.get_nowait()
                 except queue.Empty:
                     break
             try:
-                self._post(("up", 0, "release", (counts,), {}))
+                if counts:
+                    self._post(("up", 0, "release", (counts,), {}))
+                for gid in closes:
+                    self._post(("up", 0, "gen_close", (gid,), {}))
             except (OSError, ValueError):
                 return  # the driver is gone
 
     # ------------------------------------------------------ the core's API
 
     def submit_task(self, fn, label, args, kwargs, opts):
+        opts = {**opts, "_parent": core_worker.current_seq()}
         return self.request("submit_task", fn, label, args, kwargs, opts)
 
-    def submit_call(self, actor_id, method, args, kwargs, num_returns):
+    def submit_call(self, actor_id, method, args, kwargs, opts):
+        opts = {**opts, "_parent": core_worker.current_seq()}
         return self.request("submit_call", actor_id, method, args, kwargs,
-                            num_returns)
+                            opts)
+
+    def cancel(self, key: str, force: bool, recursive: bool) -> None:
+        self.request("cancel", key, force, recursive)
+
+    def gen_item(self, gid: str, value: Any) -> str:
+        """Report a streaming call's next item: ``ok`` or ``closed``."""
+        value = serialization.spill_if_large(
+            os.path.join(self._spill_dir,
+                         f"item-{os.getpid()}-{ObjectID.generate()}"), value)
+        return self.request("gen_item", gid, value)
+
+    def gen_next(self, gid: str, index: int) -> Tuple[str, Any]:
+        return self.request("gen_next", gid, index)
+
+    def gen_close(self, gid: str) -> None:
+        self._released.put((gid, None))  # fire and forget
+
+    def free(self, oids) -> None:
+        self.request("free", list(oids))
+
+    def error_of(self, oid: str) -> Optional[BaseException]:
+        return self.request("error_of", oid)
+
+    def available_resources(self) -> Dict[str, float]:
+        return self.request("available_resources")
+
+    def nodes(self) -> List[Dict[str, Any]]:
+        return self.request("nodes")
 
     def create_actor(self, wrapper, args, kwargs, opts, methods):
         return self.request("create_actor", wrapper, args, kwargs, opts,
@@ -1238,8 +1717,9 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
                 return
             raise RuntimeError("ray_tpu_torch is already initialized; call "
                                "shutdown() first")
-        ctx.set_worker_context(ctx.WorkerContext("driver"))
         _rt = _Runtime(int(num_cpus or os.cpu_count() or 1), num_gpus)
+        ctx.set_worker_context(ctx.WorkerContext("driver",
+                                                 node_id=_rt.node_id))
         serialization.set_tracker(_rt)
 
 
@@ -1318,10 +1798,134 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
 
 
 def cluster_resources() -> Dict[str, float]:
+    return runtime().cluster_resources()
+
+
+def available_resources() -> Dict[str, float]:
+    """CPU and GPU of the node less what tasks and actors hold now."""
+    return runtime().available_resources()
+
+
+def nodes() -> List[Dict[str, Any]]:
+    """The one node of this core, as the JAX package's node entries."""
+    return runtime().nodes()
+
+
+def free(refs: Sequence[ObjectRef]) -> None:
+    """Drop the driver's values of ``refs`` (``get`` then times out)."""
+    lst, _ = _as_list(refs)
+    runtime().free([r.object_id for r in lst])
+
+
+def error_of(ref: ObjectRef, *, timeout: Optional[float] = 30.0
+             ) -> Optional[BaseException]:
+    """The exception a ready object holds, or None for a value: read from
+    the driver's object table, a healthy value never moved. Waits up to
+    ``timeout`` for the object (``GetTimeoutError`` past it)."""
     rt = runtime()
-    if isinstance(rt, _Client):
-        return rt.cluster_resources()
-    return {"CPU": float(rt.num_cpus), "GPU": float(rt.num_gpus())}
+    if not rt.wait_objects([ref.object_id], 1, timeout):
+        raise GetTimeoutError(f"object {ref.object_id[:8]} not ready "
+                              f"within {timeout} s")
+    return rt.error_of(ref.object_id)
+
+
+def cancel(ref: Union[ObjectRef, "ObjectRefGenerator"], *,
+           force: bool = False, recursive: bool = False) -> None:
+    """Cancel the task or actor call that makes ``ref`` (or the stream):
+    queued, it fails at once with TaskCancelledError; running, the error
+    is raised in its thread (``force``: a task's worker process is
+    stopped). ``recursive`` also cancels what it submitted, through a
+    parent that has finished. A finished call, or a second cancel, does
+    nothing."""
+    if isinstance(ref, ObjectRefGenerator):
+        key = ref._gen_id
+    elif isinstance(ref, ObjectRef):
+        key = ref.object_id
+    else:
+        raise TypeError(f"cancel takes an ObjectRef, got {ref!r}")
+    runtime().cancel(key, force, recursive)
+
+
+class ObjectRefGenerator:
+    """The refs of a streaming call's items, in order
+    (``ray_tpu/core/api.py:583``): each ``next`` waits until the producer
+    reported the item, so item 0 can be read while the producer runs; the
+    producer's error arrives at the next ``next``. ``close()`` (and
+    ``__del__``) tells the driver the consumer is gone, without waiting:
+    it may run on any thread, during a collection, where a request that
+    waits could wait on itself. Pickling hands the stream to the
+    receiver."""
+
+    def __init__(self, gen_id: str, index: int = 0):
+        self._gen_id = gen_id
+        self._index = index
+        self._exhausted = False
+
+    def __iter__(self) -> "ObjectRefGenerator":
+        return self
+
+    def __next__(self) -> ObjectRef:
+        if self._exhausted:
+            raise StopIteration
+        kind, value = runtime().gen_next(self._gen_id, self._index)
+        if kind == "item":
+            self._index += 1
+            return value
+        self._exhausted = True
+        if kind == "err":
+            raise value
+        raise StopIteration
+
+    def close(self) -> None:
+        if self._exhausted:
+            return
+        self._exhausted = True
+        if _client is not None:
+            _client.gen_close(self._gen_id)
+        elif _rt is not None:
+            _rt.closes.put(self._gen_id)
+            _rt._wake()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+    def __reduce__(self):
+        self._exhausted = True  # the receiver holds the stream now
+        return ObjectRefGenerator, (self._gen_id, self._index)
+
+
+@dataclasses.dataclass
+class RuntimeContext:
+    """Where the calling code runs (``ray_tpu/core/api.py:2387``)."""
+
+    node_id: str
+    namespace: str
+    task_id: Optional[str]
+    actor_id: Optional[str]
+    card: Optional[int] = None
+
+    def get_node_id(self) -> str:
+        return self.node_id
+
+    def get_accelerator_ids(self) -> Dict[str, List[str]]:
+        """The cards this process took, under ``"GPU"``: its card where
+        the core gave it one, else ``CUDA_VISIBLE_DEVICES`` (empty where
+        unset: no card assigned)."""
+        if self.card is not None:
+            return {"GPU": [str(self.card)]}
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+        return {"GPU": [c for c in visible.split(",") if c.strip()]}
+
+
+def get_runtime_context() -> RuntimeContext:
+    runtime()  # the driver's core, started where init was not called
+    wc = ctx.get_worker_context()
+    return RuntimeContext(node_id=wc.node_id, namespace="default",
+                          task_id=core_worker.current_task_id(),
+                          actor_id=wc.actor_id, card=wc.card)
 
 
 def kill(actor: "ActorHandle", *, no_restart: bool = True) -> None:
@@ -1351,13 +1955,20 @@ def exit_actor() -> None:
     raise core_worker.ActorExit()
 
 
-def method(*, num_returns: int = 1):
-    """Give an actor's method ``num_returns`` results by default."""
+def method(*, num_returns: Union[int, str] = 1):
+    """Give an actor's method ``num_returns`` results by default (or
+    ``"streaming"``: an :class:`ObjectRefGenerator`)."""
     def deco(fn):
-        fn.__rtpu_num_returns__ = int(num_returns)
+        fn.__rtpu_num_returns__ = _num_returns(num_returns)
         return fn
 
     return deco
+
+
+def _num_returns(n: Union[int, str]) -> Union[int, str]:
+    if n == "streaming":
+        return n
+    return int(n)
 
 
 def _check_options(opts: Dict[str, Any], allowed: Sequence[str],
@@ -1371,7 +1982,27 @@ def _check_options(opts: Dict[str, Any], allowed: Sequence[str],
     if gpus not in (0, 1):
         raise ValueError(f"num_gpus={gpus}: 0 or 1 card, as everywhere in "
                          "the port")
+    if "num_returns" in opts:
+        _num_returns(opts["num_returns"])
     return dict(opts)
+
+
+def _traced(opts: Dict[str, Any], label: str) -> Dict[str, Any]:
+    """``opts`` with the submit span's context, where tracing is on (the
+    JAX package's ``inject_submit_span`` on its three submit paths)."""
+    from ..util import tracing
+
+    if not tracing.enabled():
+        return opts
+    carrier: Dict[str, Any] = {}
+    tracing.inject_submit_span(carrier, label)
+    return {**opts, "_trace": carrier.get("trace_ctx")}
+
+
+def _single(out):
+    if isinstance(out, ObjectRefGenerator):
+        return out
+    return out[0] if len(out) == 1 else out
 
 
 def _resolve(module: str, qualname: str) -> Any:
@@ -1436,8 +2067,8 @@ class RemoteFunction:
                     "define it at module level, not inside a function or "
                     "as a lambda")
         _check_sendable(list(args) + list(kwargs.values()), label)
-        refs = rt.submit_task(self, label, args, kwargs, self._options)
-        return refs[0] if len(refs) == 1 else refs
+        return _single(rt.submit_task(self, label, args, kwargs,
+                                      _traced(self._options, label)))
 
     def bind(self, *args, **kwargs):
         from ..dag.dag_node import FunctionNode
@@ -1449,23 +2080,33 @@ class RemoteFunction:
                         "directly; use .remote()")
 
 
+# What ``ActorMethod.options`` takes.
+CALL_OPTIONS = ("num_returns", "deadline_s",
+                "_generator_backpressure_num_objects")
+
+
 class ActorMethod:
     def __init__(self, handle: "ActorHandle", name: str,
-                 num_returns: int = 1):
+                 num_returns: Union[int, str] = 1,
+                 options: Optional[Dict[str, Any]] = None):
         self._handle = handle
         self._name = name
-        self._num_returns = num_returns
+        self._options = {"num_returns": num_returns, **(options or {})}
 
-    def options(self, num_returns: int = 1) -> "ActorMethod":
-        return ActorMethod(self._handle, self._name, num_returns)
+    def options(self, **opts) -> "ActorMethod":
+        """``num_returns`` (a count or ``"streaming"``), ``deadline_s``,
+        ``_generator_backpressure_num_objects``."""
+        return ActorMethod(self._handle, self._name, options={
+            **self._options, **_check_options(opts, CALL_OPTIONS,
+                                              "actor call")})
 
     def remote(self, *args, **kwargs):
         h = self._handle
         _check_sendable(list(args) + list(kwargs.values()),
                         f"actor method {self._name}")
-        refs = runtime().submit_call(h._actor_id, self._name, args, kwargs,
-                                     self._num_returns)
-        return refs[0] if len(refs) == 1 else refs
+        return _single(runtime().submit_call(
+            h._actor_id, self._name, args, kwargs,
+            _traced(self._options, self._name)))
 
     def bind(self, *args, **kwargs):
         from ..dag.dag_node import ClassMethodNode
@@ -1509,7 +2150,7 @@ def _methods_of(cls: type) -> Dict[str, int]:
             continue
         fn = getattr(cls, name, None)
         if callable(fn):
-            out[name] = int(getattr(fn, "__rtpu_num_returns__", 1))
+            out[name] = getattr(fn, "__rtpu_num_returns__", 1)
     return out
 
 
@@ -1538,19 +2179,11 @@ class ActorClass:
         """Start the actor; a ref at the top of an argument is passed as
         its value."""
         methods = _methods_of(self._cls)
-        conc = self._options.get("max_concurrency")
-        if conc is not None and int(conc) > 1 and not core_worker.is_async(
-                self._cls):
-            raise ValueError(
-                f"actor {self._cls.__qualname__}: max_concurrency={conc} on "
-                "a class without async methods; the port runs a sync "
-                "actor's calls one at a time (an async actor's coroutines "
-                "interleave up to max_concurrency)")
         args = [get(a) if isinstance(a, ObjectRef) else a for a in args]
         kwargs = {k: get(v) if isinstance(v, ObjectRef) else v
                   for k, v in kwargs.items()}
-        aid = runtime().create_actor(self, args, kwargs, self._options,
-                                     methods)
+        aid = runtime().create_actor(self, args, kwargs, _traced(
+            self._options, f"{self._cls.__qualname__}.__init__"), methods)
         return ActorHandle(aid, methods)
 
     def bind(self, *args, **kwargs):

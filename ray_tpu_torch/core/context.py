@@ -4,8 +4,9 @@
 It says what this process is to the port's core: the ``driver`` (the
 process that called ``init``, the owner of every object), a ``task``
 worker of the driver's pool, or an ``actor`` (which one), and which card
-it took, if any. The JAX context also carries a client of its cluster
-controller; a task worker's or an actor's line to the driver is
+it took, if any, and the id of the one node (the driver's host, named by
+the driver at ``init``). The JAX context also carries a client of its
+cluster controller; a task worker's or an actor's line to the driver is
 ``core/api.py``'s ``_Client``, made where the process starts.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ class WorkerContext:
     actor_id: Optional[str] = None
     card: Optional[int] = None
     pid: int = dataclasses.field(default_factory=os.getpid)
+    node_id: str = ""
 
 
 _context: Optional[WorkerContext] = None

@@ -5,8 +5,9 @@ an id is a cheap, hashable, picklable dict key.
 The bytes come from a Mersenne Twister per thread and per process, seeded
 once from ``os.urandom``: ids are uniqueness tokens, not secrets, and a
 child process reseeds rather than replay its parent's stream. The JAX
-package's node, worker, placement-group and job ids name parts of its
-cluster; the port's core runs on one host and keeps the ids it uses.
+package's worker, placement-group and job ids name parts of its
+cluster; the port's core runs on one host and keeps the ids it uses (its
+one node has an id, for ``get_runtime_context`` and ``nodes``).
 """
 from __future__ import annotations
 
@@ -59,6 +60,10 @@ class TaskID(BaseID):
 
 
 class ActorID(BaseID):
+    __slots__ = ()
+
+
+class NodeID(BaseID):
     __slots__ = ()
 
 

@@ -12,13 +12,18 @@ process's one call thread (the JAX package's actor mailbox).
   (``rllib/utils/actor_manager.py`` imports them from here).
 - ``_core_actor_main`` hosts the object of an actor of the core's
   ``remote`` (``core/api.py``) in an :class:`ActorHost`: the calls' errors
-  travel as values, ``exit_actor`` retires the actor. An async actor (a
-  class with ``async def`` methods) runs every call, sync or async, on
-  one persistent event loop on a thread of its own (the JAX package's
-  ``ActorMailbox.ensure_aio_loop``): the call thread hands each call to
-  the loop and takes the next, so a coroutine that awaits (a queue's
+  travel as values, ``exit_actor`` retires the actor. Its sync methods
+  run on ``max_concurrency`` threads (default 1: the process's call
+  thread itself, so the calls run in their order of submission; more
+  take a pool of that many threads, each call answering itself: the JAX
+  package's ``ActorMailbox`` threads). An async actor (a class with
+  ``async def`` methods) runs its coroutines and async generators on one
+  persistent event loop on a thread of its own (the JAX package's
+  ``ActorMailbox.ensure_aio_loop``): the call thread hands each such call
+  to the loop and takes the next, so a coroutine that awaits (a queue's
   blocked ``get``) holds up no other call; at most ``max_concurrency``
-  (default 100) run at once, and each answers itself when it ends. An
+  (default 100) run at once, and each answers itself when it ends. Its
+  sync methods leave the loop and run on the threads above. An
   actor with
   ``checkpoint_every_n`` / ``checkpoint_interval_s`` writes its instance
   and its exactly-once call journal to the host-local record store
@@ -32,6 +37,21 @@ process's one call thread (the JAX package's actor mailbox).
   functions sent to it; results of ``serialization.SPILL_BYTES`` or more
   go back as files.
 
+Each call carries a small dict from the driver (its ``wire``: the task
+id, an absolute ``deadline``, the ``stream`` id of a streaming generator,
+the submitter's ``trace_ctx``). A call whose deadline passed before it
+started is refused (:class:`Refused`, ``DeadlineExceededError``). A
+``cancel`` from the driver is taken off the pipe by the reader thread
+(:data:`CALLS`): a call that has not started is answered at once and
+never runs; a running one gets ``TaskCancelledError`` raised in its own
+thread (``PyThreadState_SetAsyncExc``, as the JAX worker does), or its
+task cancelled where it is a coroutine. A streaming call reports each
+value it yields to the driver (``_Client.gen_item``), whose answer waits
+while the consumer lags and says ``closed`` once the consumer closed the
+generator; the producer then closes its generator, so its ``finally``
+runs. With a ``trace_ctx`` the user function runs inside a consumer span
+(``util/tracing.task_span``).
+
 Both kinds talk to the driver through ``core/api.py``'s ``_Client`` over
 their pipe (``procs.serve``'s ``uplink``): a task or an actor submits
 tasks and calls, gets, waits and puts.
@@ -41,12 +61,15 @@ no torch never loads it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import inspect
 import logging
 import multiprocessing
 import os
 import pickle
 import tempfile
+import queue
 import threading
 import time
 import traceback
@@ -340,12 +363,228 @@ class Exited:
         self.retired = retired
 
 
-def _run(fn: Callable, args: Tuple, kwargs: Dict[str, Any]) -> Any:
+class Refused:
+    """The value of a call that never ran: it was cancelled while it
+    waited, or its deadline passed before it started. The driver settles
+    ``exc`` itself."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _api():
+    from . import api
+
+    return api
+
+
+def _async_raise(ident: int, exc_type: Optional[type]) -> None:
+    """Raise ``exc_type`` in the thread ``ident`` at its next bytecode
+    boundary; None clears one not yet delivered."""
+    import ctypes
+
+    ctypes.pythonapi.PyThreadState_SetAsyncExc(
+        ctypes.c_ulong(ident),
+        None if exc_type is None else ctypes.py_object(exc_type))
+
+
+# The number of the call this thread (or coroutine) runs now: what a task
+# or an actor call submits is its child, for a recursive cancel.
+_current_seq: "contextvars.ContextVar[Optional[int]]" = (
+    contextvars.ContextVar("rtpt_call_seq", default=None))
+
+
+_current_task: "contextvars.ContextVar[Optional[str]]" = (
+    contextvars.ContextVar("rtpt_task_id", default=None))
+
+
+def current_seq() -> Optional[int]:
+    return _current_seq.get()
+
+
+def current_task_id() -> Optional[str]:
+    """The id of the task or actor call running on this thread."""
+    return _current_task.get()
+
+
+class _Calls:
+    """This process's calls, as a ``cancel`` from the driver sees them (on
+    the pipe's reader thread): the calls received and not yet begun, each
+    running call's thread or the way to cancel its coroutine, and the
+    calls cancelled before they began. A cancel of a call that has ended,
+    or that this process never received, finds none of them and does
+    nothing."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.queued: Dict[int, str] = {}  # seq received -> its refusal
+        self.running: Dict[int, Any] = {}  # seq -> thread ident | stop()
+        self.cancelled: set = set()  # seq cancelled before it began
+        self.raised: set = set()  # seq sent TaskCancelledError
+
+    def expect(self, msg: Tuple) -> None:
+        """The reader received the call ``(seq, method, args, kwargs)``.
+        A task's or an actor call's (``run``, ``call``) begins
+        (:meth:`begin`) or answers without running (:meth:`drop`); until
+        then a cancel refuses it, in the JAX worker's words
+        (``ray_tpu/core/worker.py:909``, ``:1307``)."""
+        seq, method, args = msg[0], msg[1], msg[2]
+        if method == "run":
+            what, wire = "task", args[1]
+        elif method == "call":
+            what, wire = "actor call", args[2]
+        else:
+            return
+        task_id = (wire or {}).get("task_id") or str(seq)
+        with self.lock:
+            self.queued[seq] = (
+                f"{what} {task_id[:8]} was cancelled "
+                + ("while queued" if method == "call"
+                   else "before it started"))
+
+    def begin(self, seq: int, wire: Optional[Dict[str, Any]],
+              stop: Optional[Callable[[], None]] = None) -> bool:
+        """Mark ``seq`` running on this thread (or as the coroutine that
+        ``stop()`` cancels); False where it was cancelled while it waited
+        (its answer is sent already: it must not run)."""
+        with self.lock:
+            self.queued.pop(seq, None)
+            if seq in self.cancelled:
+                self.cancelled.discard(seq)
+                return False
+            self.running[seq] = threading.get_ident() if stop is None \
+                else stop
+        _current_seq.set(seq)
+        _current_task.set((wire or {}).get("task_id"))
+        return True
+
+    def drop(self, seq: int) -> bool:
+        """``seq`` leaves the queue; False where it was cancelled there
+        (answered already: it must not answer again)."""
+        with self.lock:
+            self.queued.pop(seq, None)
+            if seq in self.cancelled:
+                self.cancelled.discard(seq)
+                return False
+        return True
+
+    def end(self, seq: int) -> None:
+        """``seq`` ended: no cancel reaches it from now on, and one sent
+        to this thread but not yet delivered is withdrawn."""
+        api = _api()
+        while True:
+            try:
+                with self.lock:
+                    target = self.running.pop(seq, None)
+                    if seq in self.raised:
+                        self.raised.discard(seq)
+                        if isinstance(target, int):
+                            _async_raise(target, None)
+                break
+            except api.TaskCancelledError:
+                continue  # delivered on the way out: the call had ended
+        _current_seq.set(None)
+        _current_task.set(None)
+
+    def cancel(self, seq: int) -> Optional["Refused"]:
+        """Cancel ``seq``: where it had not begun, its answer, which the
+        caller sends now (it will not run); else None."""
+        api = _api()
+        with self.lock:
+            said = self.queued.pop(seq, None)
+            if said is not None:
+                self.cancelled.add(seq)
+                return Refused(api.TaskCancelledError(said))
+            target = self.running.get(seq)
+            if target is None:
+                return None  # ended, or never received here
+            if seq not in self.raised:
+                self.raised.add(seq)
+                if isinstance(target, int):
+                    _async_raise(target, api.TaskCancelledError)
+                else:
+                    target()
+        return None
+
+
+CALLS = _Calls()
+
+
+def _refusal(wire: Optional[Dict[str, Any]]) -> Optional[Refused]:
+    """The answer of a call whose deadline passed before it started."""
+    deadline = (wire or {}).get("deadline")
+    if deadline is not None and time.time() > deadline:
+        return Refused(_api().DeadlineExceededError(
+            f"{wire.get('label', 'the call')}: its deadline passed "
+            f"{time.time() - deadline:.3f} s before it started"))
+    return None
+
+
+def _span(wire: Optional[Dict[str, Any]]):
+    """The consumer span around a call that carries its submitter's
+    trace context; nothing for one that carries none."""
+    if not (wire or {}).get("trace_ctx"):
+        return contextlib.nullcontext()
+    from ..util.tracing import task_span
+
+    return task_span(wire)
+
+
+def _stream(wire: Dict[str, Any], value: Any) -> None:
+    """Report each value of the generator ``value`` to the driver as the
+    streaming call's next item (the JAX worker's ``_run_streaming``),
+    until it ends or the consumer closed the stream."""
+    if not inspect.isgenerator(value):
+        raise TypeError(f"num_returns='streaming' requires a generator "
+                        f"function, got {type(value).__name__}")
+    client = _api().runtime()
+    for item in value:
+        if client.gen_item(wire["stream"], item) == "closed":
+            value.close()  # the consumer is gone: the generator's finally
+            break
+
+
+async def _stream_async(wire: Dict[str, Any], agen: Any) -> None:
+    """An async generator's items, each reported off the loop, so that
+    the actor's other coroutines go on meanwhile."""
+    import asyncio
+
+    client = _api().runtime()
+    loop = asyncio.get_running_loop()
+    async for item in agen:
+        ack = await loop.run_in_executor(None, client.gen_item,
+                                         wire["stream"], item)
+        if ack == "closed":
+            await agen.aclose()
+            break
+
+
+def _run(fn: Callable, args: Tuple, kwargs: Dict[str, Any],
+         wire: Optional[Dict[str, Any]], on_actor: bool) -> Any:
+    """``fn(*args, **kwargs)`` as a task or a sync actor call: a
+    coroutine runs to its end here; a streaming call's generator reports
+    its items. What ``ray_tpu/core/worker.py:1365-1421`` refuses raises
+    the same TypeError."""
+    streaming = bool((wire or {}).get("stream"))
     value = fn(*args, **kwargs)
     if isinstance(value, types.CoroutineType):  # an async function
+        if streaming:
+            value.close()
+            raise TypeError("num_returns='streaming' requires a (sync or "
+                            "async) generator; this method is a plain "
+                            "coroutine")
         import asyncio
 
         value = asyncio.run(value)
+    if inspect.isasyncgen(value):
+        if not streaming:
+            raise TypeError("async generator methods require "
+                            "num_returns='streaming'")
+        if not on_actor:
+            raise TypeError("async generators are only supported on actors")
+    if streaming:
+        _stream(wire, value)
+        return None
     return value
 
 
@@ -395,6 +634,28 @@ class _AsyncLoop:
                          exc_info=fut.exception())
 
 
+class _CallThreads:
+    """A sync actor's ``max_concurrency`` call threads (above 1): the
+    process's call thread queues each call here and takes the next; a
+    free thread runs it and answers it."""
+
+    def __init__(self, actor_id: str, n: int,
+                 run: Callable[[Tuple], None]):
+        self.q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.run = run
+        self.threads = [threading.Thread(
+            target=self._loop, name=f"rtpt-actor-call-{actor_id[:8]}-{i}",
+            daemon=True) for i in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def _loop(self) -> None:
+        while True:
+            item = self.q.get()
+            self.run(item)
+            item = None  # nothing of a call outlives it
+
+
 class ActorHost:
     """What a core actor process serves: the user's instance behind
     :meth:`call`, its journal and checkpoints, and the compiled DAGs it
@@ -436,6 +697,9 @@ class ActorHost:
         self.result_wrap: Callable[[int, str, Any], Any] = (
             lambda seq, method, value: value)
         self.aio: Optional[_AsyncLoop] = None
+        self.pool: Optional[_CallThreads] = None
+        # The journal and the checkpoints, between the call threads.
+        self.lock = threading.RLock()
         record = None
         if restore and self.ckpt_enabled:
             found = checkpoint.newest_local(actor_id)
@@ -447,10 +711,12 @@ class ActorHost:
         with serialization.delivering():  # its refs: the process's borrows
             self._cls_ref, args, kwargs = pickle.loads(payload)
         cls = getattr(self._cls_ref, "__rtpu_target__", self._cls_ref)
+        conc = opts.get("max_concurrency")
         if is_async(cls):
-            conc = opts.get("max_concurrency")
             self.aio = _AsyncLoop(actor_id, ASYNC_CONCURRENCY if conc is None
                                   else max(1, int(conc)))
+        if conc is not None and int(conc) > 1:
+            self.pool = _CallThreads(actor_id, int(conc), self._pooled)
         if record is not None:
             self.instance = _restore(*record["instance"])
             self.journal = record["journal"]
@@ -458,33 +724,86 @@ class ActorHost:
         else:
             if restore:
                 checkpoint.prune_local(actor_id)
-            self.instance = cls(*args, **kwargs)
+            with _span(opts.get("wire")):
+                self.instance = cls(*args, **kwargs)
 
     def bind(self, mailbox: procs.Mailbox) -> None:
         self.mailbox = mailbox
 
     # ------------------------------------------------------------- calls
 
-    def call(self, _method: str, _key: Optional[int], /, *args,
+    def call(self, _method: str, _key: Optional[int],
+             _wire: Optional[Dict[str, Any]] = None, /, *args,
              **kwargs) -> Any:
         """``method(*args, **kwargs)`` on the instance; its value, a
-        :class:`Raised` or an :class:`Exited`. A call number ``key`` the
-        journal holds returns its journaled value without running."""
+        :class:`Raised`, a :class:`Refused` or an :class:`Exited`. A call
+        number ``key`` the journal holds returns its journaled value
+        without running. A coroutine or an async generator goes to the
+        event loop, and with ``max_concurrency`` above 1 a sync call goes
+        to the call threads: each answers itself."""
+        seq = getattr(self.mailbox, "seq", 0)  # no mailbox: a unit's host
         if self.exited:
-            return Exited(retired=True)
+            return Exited(retired=True) if CALLS.drop(seq) \
+                else procs.ANSWERED
         if self.replay and _key is not None and _key in self.journal:
-            return self.journal[_key]
-        if self.aio is not None:
-            self.aio.submit(self._drive(self.mailbox.seq, _method, _key,
-                                        args, kwargs))
+            return self.journal[_key] if CALLS.drop(seq) else procs.ANSWERED
+        try:
+            fn = getattr(self.instance, _method)
+        except AttributeError as e:
+            return Raised(e, traceback.format_exc()) if CALLS.drop(seq) \
+                else procs.ANSWERED
+        if self.aio is not None and (inspect.iscoroutinefunction(fn)
+                                     or inspect.isasyncgenfunction(fn)):
+            self.aio.submit(self._drive(seq, _method, _key, _wire, fn, args,
+                                        kwargs))
+            return procs.ANSWERED
+        if self.pool is not None:
+            self.pool.q.put((seq, _method, _key, _wire, fn, args, kwargs))
+            return procs.ANSWERED
+        return self._run_sync(seq, _key, _wire, fn, args, kwargs)
+
+    def _run_sync(self, seq: int, key: Optional[int],
+                  wire: Optional[Dict[str, Any]], fn: Callable, args: Tuple,
+                  kwargs: Dict[str, Any]) -> Any:
+        """A sync call on this thread, for cancel and its deadline;
+        :data:`procs.ANSWERED` where it was cancelled while it waited."""
+        if not CALLS.begin(seq, wire):
             return procs.ANSWERED
         try:
-            value = _run(getattr(self.instance, _method), args, kwargs)
-        except ActorExit:
-            return self._exit()
-        except Exception as e:  # noqa: BLE001 — the call's value
+            refused = _refusal(wire)
+            if refused is not None:
+                return refused
+            if self.exited:
+                return Exited(retired=True)
+            try:
+                with _span(wire):
+                    value = _run(fn, args, kwargs, wire, on_actor=True)
+            except ActorExit:
+                return self._exit()
+            except Exception as e:  # noqa: BLE001 — the call's value
+                value = Raised(e, traceback.format_exc())
+        finally:
+            CALLS.end(seq)
+        return self._applied(key, value)
+
+    def _pooled(self, item: Tuple) -> None:
+        """A call on one of the call threads, answered from there."""
+        seq, method, key, wire, fn, args, kwargs = item
+        item = None
+        try:
+            value = self._run_sync(seq, key, wire, fn, args, kwargs)
+        except Exception as e:  # noqa: BLE001 — e.g. a late cancel
             value = Raised(e, traceback.format_exc())
-        return self._applied(_key, value)
+        args = kwargs = None
+        if value is not procs.ANSWERED:
+            self._answer(seq, method, value)
+
+    def _answer(self, seq: int, method: str, value: Any) -> None:
+        try:
+            value = self.result_wrap(seq, method, value)
+            self.mailbox.answer(seq, "ok", value)
+        except Exception:  # noqa: BLE001 — reported to the caller
+            self.mailbox.answer(seq, "err", traceback.format_exc())
 
     def _exit(self) -> "Exited":
         self.exited = True
@@ -492,39 +811,80 @@ class ActorHost:
         return Exited(retired=False)
 
     async def _drive(self, seq: int, method: str, key: Optional[int],
+                     wire: Optional[Dict[str, Any]], fn: Callable,
                      args: Tuple, kwargs: Dict[str, Any]) -> None:
-        """An async actor's call, on its loop: a coroutine method is
-        awaited, a sync one runs there; then the call answers itself."""
+        """An async actor's coroutine or async generator, on its loop;
+        then the call answers itself. A cancel cancels its task."""
+        import asyncio
+
         async with self.aio.sem:
-            if self.exited:
-                value: Any = Exited(retired=True)
-            else:
-                try:
-                    value = getattr(self.instance, method)(*args, **kwargs)
-                    if inspect.isawaitable(value):
-                        value = await value
-                    value = self._applied(key, value)
-                except ActorExit:
-                    value = self._exit()
-                except Exception as e:  # noqa: BLE001 — the call's value
-                    value = self._applied(
-                        key, Raised(e, traceback.format_exc()))
+            task = asyncio.current_task()
+            loop = self.aio.loop
+
+            def stop():
+                loop.call_soon_threadsafe(task.cancel)
+
+            if not CALLS.begin(seq, wire, stop):
+                return
+            try:
+                value = await self._drive_call(method, key, wire, fn, args,
+                                               kwargs)
+            finally:
+                CALLS.end(seq)
+        self._answer(seq, method, value)
+
+    async def _drive_call(self, method: str, key: Optional[int],
+                          wire: Optional[Dict[str, Any]], fn: Callable,
+                          args: Tuple, kwargs: Dict[str, Any]) -> Any:
+        import asyncio
+
+        refused = _refusal(wire)
+        if refused is not None:
+            return refused
+        if self.exited:
+            return Exited(retired=True)
         try:
-            value = self.result_wrap(seq, method, value)
-            self.mailbox.answer(seq, "ok", value)
-        except Exception:  # noqa: BLE001 — reported to the caller
-            self.mailbox.answer(seq, "err", traceback.format_exc())
+            with _span(wire):
+                value = await self._awaited(fn, args, kwargs, wire)
+        except ActorExit:
+            return self._exit()
+        except asyncio.CancelledError:
+            return Raised(_api().TaskCancelledError(
+                f"{method} was cancelled while it ran"),
+                traceback.format_exc())
+        except Exception as e:  # noqa: BLE001 — the call's value
+            value = Raised(e, traceback.format_exc())
+        return self._applied(key, value)
+
+    @staticmethod
+    async def _awaited(fn: Callable, args: Tuple, kwargs: Dict[str, Any],
+                       wire: Optional[Dict[str, Any]]) -> Any:
+        streaming = bool((wire or {}).get("stream"))
+        value = fn(*args, **kwargs)
+        if inspect.isasyncgen(value):
+            if not streaming:
+                raise TypeError("async generator methods require "
+                                "num_returns='streaming'")
+            await _stream_async(wire, value)
+            return None
+        if streaming:
+            value.close()
+            raise TypeError("num_returns='streaming' requires a (sync or "
+                            "async) generator; this method is a plain "
+                            "coroutine")
+        return await value
 
     def _applied(self, _key: Optional[int], value: Any) -> Any:
         """Journal and checkpoint after a call ran; its value."""
-        if self.replay and _key is not None:
-            self.journal[_key] = value
-            keys = [k for k in self.journal if isinstance(k, int)]
-            for k in sorted(keys)[:max(0, len(keys) - self.JOURNAL_MAX)]:
-                del self.journal[k]
-        if self.ckpt_enabled:
-            self.calls_since_ckpt += 1
-            self.maybe_checkpoint()
+        with self.lock:
+            if self.replay and _key is not None:
+                self.journal[_key] = value
+                keys = [k for k in self.journal if isinstance(k, int)]
+                for k in sorted(keys)[:max(0, len(keys) - self.JOURNAL_MAX)]:
+                    del self.journal[k]
+            if self.ckpt_enabled:
+                self.calls_since_ckpt += 1
+                self.maybe_checkpoint()
         return value
 
     # ------------------------------------------------------- checkpoints
@@ -534,30 +894,32 @@ class ActorHost:
         calls, or ``checkpoint_interval_s`` after the last."""
         if not self.ckpt_enabled or self.exited:
             return
-        due = ((self.ckpt_every_n
-                and self.calls_since_ckpt >= self.ckpt_every_n)
-               or (self.ckpt_interval > 0.0 and time.monotonic()
-                   - self.last_ckpt >= self.ckpt_interval))
-        if due:
-            self.checkpoint()
+        with self.lock:
+            due = ((self.ckpt_every_n
+                    and self.calls_since_ckpt >= self.ckpt_every_n)
+                   or (self.ckpt_interval > 0.0 and time.monotonic()
+                       - self.last_ckpt >= self.ckpt_interval))
+            if due:
+                self.checkpoint()
 
     def checkpoint(self) -> Optional[int]:
         """Write the instance and the journal under the next epoch; the
         epoch, or None where the instance does not pickle (the actor goes
         on, without checkpoints)."""
-        try:
-            blob = checkpoint.encode(
-                (self._cls_ref, self.instance.__getstate__()), self.journal,
-                self.epoch + 1)
-        except Exception:  # noqa: BLE001 — an instance that cannot pickle
-            logger.exception("actor %s: checkpoint failed",
-                             self.actor_id[:8])
-            return None
-        self.epoch += 1
-        self.calls_since_ckpt = 0
-        self.last_ckpt = time.monotonic()
-        checkpoint.write_local(self.actor_id, self.epoch, blob)
-        return self.epoch
+        with self.lock:
+            try:
+                blob = checkpoint.encode(
+                    (self._cls_ref, self.instance.__getstate__()),
+                    self.journal, self.epoch + 1)
+            except Exception:  # noqa: BLE001 — an unpicklable instance
+                logger.exception("actor %s: checkpoint failed",
+                                 self.actor_id[:8])
+                return None
+            self.epoch += 1
+            self.calls_since_ckpt = 0
+            self.last_ckpt = time.monotonic()
+            checkpoint.write_local(self.actor_id, self.epoch, blob)
+            return self.epoch
 
     def idle(self) -> None:
         if self.ckpt_interval > 0.0:
@@ -632,14 +994,15 @@ def _result_wrap(spill_dir: str) -> Callable[[int, str, Any], Any]:
 def _core_actor_main(conn, payload: bytes, actor_id: str,
                      card: Optional[int], opts: Dict[str, Any],
                      restore: bool, spill_dir: str,
-                     environ: Optional[Dict[str, str]]) -> None:
+                     environ: Optional[Dict[str, str]], node_id: str) -> None:
     """A core actor process: the driver's environment, the card (before
     anything touches CUDA), the worker context, then the host's loop."""
     t_main = time.time()
     _take_environment(environ)
     if card is not None:
         procs.take_card(card)
-    ctx.set_worker_context(ctx.WorkerContext("actor", actor_id, card))
+    ctx.set_worker_context(ctx.WorkerContext("actor", actor_id, card,
+                                             node_id=node_id))
     host: List[ActorHost] = []
 
     wrap = _result_wrap(spill_dir)
@@ -661,23 +1024,42 @@ def _core_actor_main(conn, payload: bytes, actor_id: str,
 class TaskHost:
     """What a task worker serves: :meth:`run` of the functions sent."""
 
-    def run(self, _fn: Callable, /, *args, **kwargs) -> Any:
-        _fn = getattr(_fn, "__rtpu_target__", _fn)  # a RemoteFunction
+    def __init__(self):
+        self.mailbox: Optional[procs.Mailbox] = None
+
+    def bind(self, mailbox: procs.Mailbox) -> None:
+        self.mailbox = mailbox
+
+    def run(self, _fn: Callable, _wire: Optional[Dict[str, Any]], /, *args,
+            **kwargs) -> Any:
+        seq = self.mailbox.seq
+        if not CALLS.begin(seq, _wire):
+            return procs.ANSWERED  # cancelled while it waited: answered
         try:
-            return _run(_fn, args, kwargs)
+            refused = _refusal(_wire)
+            if refused is not None:
+                return refused
+            _fn = getattr(_fn, "__rtpu_target__", _fn)  # a RemoteFunction
+            with _span(_wire):
+                return _run(_fn, args, kwargs, _wire, on_actor=False)
         except Exception as e:  # noqa: BLE001 — the task's value
             return Raised(e, traceback.format_exc())
+        finally:
+            CALLS.end(seq)
 
 
 def _task_main(conn, card: Optional[int], spill_dir: str,
-               environ: Optional[Dict[str, str]]) -> None:
+               environ: Optional[Dict[str, str]], node_id: str) -> None:
     t_main = time.time()
     _take_environment(environ)
     if card is not None:
         procs.take_card(card)
-    ctx.set_worker_context(ctx.WorkerContext("task", None, card))
-    procs.serve(conn, TaskHost, ready={"t_main": t_main}, load=_unspill,
-                wrap=_result_wrap(spill_dir), dumps=serialization.dumps,
+    ctx.set_worker_context(ctx.WorkerContext("task", None, card,
+                                             node_id=node_id))
+    host = TaskHost()
+    procs.serve(conn, lambda: host, ready={"t_main": t_main},
+                load=_unspill, wrap=_result_wrap(spill_dir),
+                dumps=serialization.dumps, on_mailbox=host.bind,
                 loads=serialization.loads_delivered,
                 uplink=_uplink(spill_dir))
 

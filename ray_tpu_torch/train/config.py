@@ -34,8 +34,8 @@ class ScalingConfig:
             raise ValueError(
                 f"placement_strategy {self.placement_strategy!r}: the "
                 "port's workers are processes of one host; placing "
-                "them across hosts waits for the control plane's port "
-                "(ROADMAP item G)")
+                "them across hosts waits for placement groups and the "
+                "control plane's port (ROADMAP queue A, item 4)")
 
     def worker_resources(self) -> Dict[str, float]:
         res = dict(self.resources_per_worker or {})

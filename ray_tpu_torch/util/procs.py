@@ -46,6 +46,8 @@ import multiprocessing.connection as mpc
 import os
 import pickle
 import queue
+import socket
+import struct
 import sys
 import threading
 import time
@@ -413,6 +415,27 @@ class Mailbox:
         return self._inbox.get(timeout=timeout)
 
 
+def frame_writer(conn) -> Callable[[bytes], None]:
+    """How :func:`serve` writes a message to ``conn``: the frame
+    ``Connection.send_bytes`` makes (its length, then the bytes), in one
+    ``socket.sendall``, a C call that loops over partial writes itself.
+    A call's thread can be cancelled by an exception raised into it at
+    any bytecode (``core/worker.py``, ``PyThreadState_SetAsyncExc``);
+    ``send_bytes`` writes a message above 16 KiB as two writes, each in a
+    loop of Python code, so such a raise could leave half a frame on the
+    pipe and garble every later message. (``Worker``'s pipe is a socket
+    pair.)"""
+    sock = socket.socket(fileno=os.dup(conn.fileno()))
+
+    def write(data: bytes) -> None:
+        n = len(data)
+        head = (struct.pack("!i", n) if n <= 0x7fffffff
+                else struct.pack("!iQ", -1, n))
+        sock.sendall(head + data)
+
+    return write
+
+
 def serve(conn, build: Callable[[], Any],
           ready: Optional[Dict[str, Any]] = None,
           load: Optional[Callable[[str, Tuple], Tuple]] = None,
@@ -458,11 +481,12 @@ def serve(conn, build: Callable[[], Any],
     io.setdefault("send_s", 0.0)
     inbox: "queue.Queue[Any]" = queue.Queue()
     send_lock = threading.Lock()
+    send = frame_writer(conn)
 
     def post(msg: Any) -> None:
         data = dumps(msg)
         with send_lock:
-            conn.send_bytes(data)
+            send(data)
 
     route = uplink(post) if uplink is not None else None
 
@@ -508,7 +532,7 @@ def serve(conn, build: Callable[[], Any],
         except Exception:  # noqa: BLE001 — a result that cannot travel
             data = pickle.dumps((seq, "err", traceback.format_exc()))
         with send_lock:
-            conn.send_bytes(data)
+            send(data)
         io["send_s"] += time.perf_counter() - t
 
     mailbox = Mailbox(inbox, answer)

@@ -3,8 +3,10 @@ of the JAX package's ``util/queue.py``, whole): put and get with block
 and timeout, qsize, empty, full, the nowait forms and the all-or-nothing
 batch forms.
 
-The backing :class:`_QueueActor` is an async actor (``core/worker.py``):
-every call runs on its one event loop, so a ``get`` that waits on an
+The backing :class:`_QueueActor` is an async actor (``core/worker.py``)
+whose methods are all coroutines, so every call runs on its one event
+loop (an async actor's sync methods would run on a thread of their own,
+and an ``asyncio.Queue`` is not thread-safe): a ``get`` that waits on an
 empty queue holds up no ``put``, and the ``asyncio.Queue`` is made there,
 on the loop, at the first call. A :class:`Queue` pickles into tasks and
 actors as its actor's handle, so every copy talks to the same actor.
@@ -55,20 +57,20 @@ class _QueueActor:
         except asyncio.TimeoutError:
             return False, None
 
-    def put_nowait(self, item) -> bool:
+    async def put_nowait(self, item) -> bool:
         try:
             self.q.put_nowait(item)
             return True
         except asyncio.QueueFull:
             return False
 
-    def get_nowait(self):
+    async def get_nowait(self):
         try:
             return True, self.q.get_nowait()
         except asyncio.QueueEmpty:
             return False, None
 
-    def put_batch_nowait(self, items) -> bool:
+    async def put_batch_nowait(self, items) -> bool:
         """All or nothing."""
         if self.q.maxsize and self.q.qsize() + len(items) > self.q.maxsize:
             return False
@@ -76,16 +78,16 @@ class _QueueActor:
             self.q.put_nowait(item)
         return True
 
-    def get_batch_nowait(self, n: int):
+    async def get_batch_nowait(self, n: int):
         """All or nothing: takes nothing where fewer than ``n`` wait."""
         if self.q.qsize() < n:
             return False, None
         return True, [self.q.get_nowait() for _ in range(n)]
 
-    def qsize(self) -> int:
+    async def qsize(self) -> int:
         return self.q.qsize()
 
-    def maxsize(self) -> int:
+    async def maxsize(self) -> int:
         return self.q.maxsize
 
 

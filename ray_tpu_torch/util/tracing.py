@@ -17,11 +17,18 @@ processes started afterwards inherit it through the environment). With it
 on, every serve hop also lands here, so one trace id yields the hops of
 every process.
 
-The JAX module's task spans (a PRODUCER span at submission, a CONSUMER
-span around the task) have no counterpart: the port has no tasks.
+Task spans, as in the JAX module: :func:`inject_submit_span` records a
+PRODUCER span where a task, an actor call or an actor is submitted and
+carries its context in the submission; :func:`task_span` opens the
+CONSUMER span around the user function in the task worker or the actor,
+a child of that context. A submission made with tracing off carries
+nothing, and a call that carries nothing opens no span. The current span
+is a context variable: each thread, and each coroutine of an async
+actor's loop, has its own.
 """
 from __future__ import annotations
 
+import contextvars
 import os
 import secrets
 import threading
@@ -34,7 +41,8 @@ from .. import flags
 # Bound of this process's finished-span record.
 FINISHED_MAX = 4096
 
-_local = threading.local()
+_current: "contextvars.ContextVar[Optional[SpanContext]]" = (
+    contextvars.ContextVar("rtpt_span", default=None))
 _finished: List["Span"] = []
 _finished_lock = threading.Lock()
 _otel_sdk = None  # resolved once by setup_tracing
@@ -94,7 +102,7 @@ def record_finished(span: Span) -> None:
 
 
 def current_span_context() -> Optional[SpanContext]:
-    return getattr(_local, "ctx", None)
+    return _current.get()
 
 
 def current_trace_id() -> str:
@@ -158,7 +166,7 @@ def get_cluster_spans(trace_id: Optional[str] = None,
 
 
 class _SpanScope:
-    """start span -> set thread-local context -> restore + record."""
+    """start span -> set the current context -> restore + record."""
 
     def __init__(self, name: str, kind: str,
                  attributes: Optional[Dict[str, Any]] = None,
@@ -178,13 +186,12 @@ class _SpanScope:
                          parent_span_id=parent.span_id if parent else "",
                          attributes=self.attributes)
         self._prev = current_span_context()
-        _local.ctx = ctx
+        _current.set(ctx)
         return self.span
 
     def __exit__(self, et, ev, tb):
-        if getattr(_local, "ctx", None) is (
-                self.span.context if self.span else None):
-            _local.ctx = self._prev
+        if _current.get() is (self.span.context if self.span else None):
+            _current.set(self._prev)
         if self.span is not None:
             if et is not None:
                 self.span.attributes["error"] = repr(ev)
@@ -223,3 +230,50 @@ def setup_tracing(span_processor: Optional[Any] = None) -> None:
     except ImportError:
         _otel_sdk = None  # the built-in tracer carries the spans
     os.environ["RTPU_TRACING"] = "1"
+
+
+def inject_submit_span(carrier: Dict[str, Any], label: str) -> None:
+    """Submitter side (``ray_tpu/util/tracing.py:225``): with tracing on,
+    record a PRODUCER span ``submit <label>`` and carry its context in
+    ``carrier["trace_ctx"]`` as a W3C traceparent; with it off, nothing."""
+    if not enabled():
+        return
+    try:
+        with _SpanScope(f"submit {label}", "producer",
+                        {"rtpu.task_id": carrier.get("task_id", ""),
+                         "rtpu.label": label}) as span:
+            carrier["trace_ctx"] = {
+                "traceparent": span.context.to_traceparent()}
+    except Exception:  # noqa: BLE001 — tracing never breaks a submission
+        pass
+
+
+class task_span:
+    """Worker side (``ray_tpu/util/tracing.py:241``): a CONSUMER span
+    ``run <label>`` around the user function, a child of the context the
+    submission carries (opened wherever one is carried: the submitter
+    decided)."""
+
+    def __init__(self, spec: Dict[str, Any]):
+        self._spec = spec
+        self._scope: Optional[_SpanScope] = None
+
+    def __enter__(self) -> Optional[Span]:
+        tp = (self._spec.get("trace_ctx") or {}).get("traceparent", "")
+        parent = SpanContext.from_traceparent(tp) if tp else None
+        if parent is None:
+            return None
+        self._scope = _SpanScope(
+            f"run {self._spec.get('label', 'task')}", "consumer",
+            {"rtpu.task_id": self._spec.get("task_id", ""),
+             "rtpu.actor_id": self._spec.get("actor_id") or ""},
+            parent=parent)
+        return self._scope.__enter__()
+
+    def __exit__(self, et, ev, tb):
+        if self._scope is not None:
+            try:
+                self._scope.__exit__(et, ev, tb)
+            except Exception:  # noqa: BLE001 — tracing never fails a call
+                pass
+        return False

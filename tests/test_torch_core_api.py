@@ -270,12 +270,6 @@ class Gate:
         return list(self.log)
 
 
-@rt.remote
-class SyncOnly:
-    def ping(self):
-        return "pong"
-
-
 def _wait_for(pred, timeout=30.0, interval=0.05, desc="condition"):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -547,8 +541,8 @@ def test_catch_exceptions_option_is_carried(core):
 
 def test_async_actor_calls_interleave(core):
     """A coroutine blocked on an event holds up no other call: the gate's
-    opener runs while two waiters wait, and a sync method runs on the
-    same loop meanwhile."""
+    opener runs while two waiters wait, and a sync method runs (off the
+    loop) meanwhile."""
     g = Gate.remote()
     first = g.wait_open.remote("a")
     second = g.wait_open.remote("b")
@@ -558,16 +552,6 @@ def test_async_actor_calls_interleave(core):
     assert rt.get(g.open.remote(), timeout=30) == "opened"
     assert rt.get([first, second], timeout=30) == ["a", "b"]
     assert rt.get(g.read_log.remote(), timeout=30) == ["open", "a", "b"]
-    rt.kill(g)
-
-
-def test_max_concurrency_on_a_sync_actor_refused_before_any_spawn(core):
-    before = len(_runtime().actors)
-    with pytest.raises(ValueError, match="max_concurrency"):
-        SyncOnly.options(max_concurrency=4).remote()
-    assert len(_runtime().actors) == before
-    g = Gate.options(max_concurrency=2).remote()
-    assert rt.get(g.open.remote(), timeout=30) == "opened"
     rt.kill(g)
 
 

@@ -6,12 +6,49 @@ kinds, attributes, the error attribute, the restored context),
 ``get_cluster_spans`` reading back what this process shipped to its own
 sink. The serve cases (tracing off adds nothing, the mirror of
 tests/test_tracing.py:65; tracing on returns every process's hops of a
-request) are in test_torch_serve_trace.py. The port has no tasks, so
-tests/test_tracing.py:12 and :44 have no counterpart."""
+request) are in test_torch_serve_trace.py. Task spans: the mirrors of
+tests/test_tracing.py:12 (a task's CONSUMER span shares the driver's
+trace, and the driver records the PRODUCER span of its submission, each
+held to the JAX package's on the same scenario) and :44 (an actor call's
+span shares the trace), an actor's constructor in a span of its
+creation's trace, and with tracing off a submission that carries
+nothing.
+
+Task workers and actors import this module again, so its top loads
+neither torch nor jax."""
+import os
+
 import pytest
 
+import ray_tpu_torch as rt
 from ray_tpu_torch.core import sink as psink
 from ray_tpu_torch.util import tracing as ptracing
+
+
+@rt.remote
+def traced_work():
+    """The consumer span is active around the task: its trace id is the
+    driver's."""
+    from ray_tpu_torch.util import tracing as t
+
+    ctx = t.current_span_context()
+    return (ctx.trace_id if ctx else "", bool(ctx and ctx.is_valid))
+
+
+@rt.remote
+class Probe:
+    def __init__(self):
+        from ray_tpu_torch.util import tracing as t
+
+        self.born_in = t.current_trace_id()
+
+    def trace_id(self):
+        from ray_tpu_torch.util import tracing as t
+
+        return t.current_trace_id()
+
+    def birth_trace(self):
+        return self.born_in
 
 
 def _jtracing():
@@ -126,3 +163,81 @@ def test_cluster_spans_from_this_process_sink(monkeypatch):
     ptracing.drain_finished_spans()
     assert ptracing.flush_spans() is True
     assert ptracing.get_cluster_spans(quiet.context.trace_id) == []
+
+
+def _task_span_scenario(mod, remote, get, init, shutdown, work):
+    """tests/test_tracing.py:12 on one package: (the worker's trace is
+    the driver's, the span inside is valid, the submit span's name and
+    kind and whether its trace is the driver's, its end after start)."""
+    mod.setup_tracing()
+    try:
+        init(num_cpus=2)
+        with mod.start_span("driver-root") as root:
+            driver_trace = root.context.trace_id
+            worker_trace, valid = get(remote(work).remote(), timeout=60)
+        submits = [sp for sp in mod.get_finished_spans()
+                   if sp.name.startswith("submit traced")]
+        return (worker_trace == driver_trace, valid, submits[0].name,
+                submits[0].kind, submits[0].context.trace_id == driver_trace,
+                submits[0].end_time >= submits[0].start_time)
+    finally:
+        os.environ.pop("RTPU_TRACING", None)
+        shutdown()
+
+
+def _jax_traced_work():
+    from ray_tpu.util import tracing as t
+
+    ctx = t.current_span_context()
+    return (ctx.trace_id if ctx else "", bool(ctx and ctx.is_valid))
+
+
+def test_trace_context_propagates_to_worker():
+    """The mirror of tests/test_tracing.py:12, held to the JAX package's
+    outcome on the same scenario."""
+    import ray_tpu
+
+    port = _task_span_scenario(ptracing, rt.remote, rt.get, rt.init,
+                               rt.shutdown, traced_work.__rtpu_target__)
+    traced = _jax_traced_work
+    traced.__name__ = traced.__qualname__ = "traced_work"
+    jax_ = _task_span_scenario(_jtracing(), ray_tpu.remote, ray_tpu.get,
+                               ray_tpu.init, ray_tpu.shutdown, traced)
+    assert port == jax_
+    assert port == (True, True, "submit traced_work", "producer", True,
+                    True)
+
+
+def test_actor_call_spans_share_trace():
+    """The mirror of tests/test_tracing.py:44; the constructor runs in a
+    span of its creation's trace too."""
+    ptracing.setup_tracing()
+    try:
+        rt.init(num_cpus=2)
+        with ptracing.start_span("actor-root") as root:
+            p = Probe.remote()
+            inside = rt.get(p.trace_id.remote(), timeout=60)
+        assert inside == root.context.trace_id
+        assert rt.get(p.birth_trace.remote(), timeout=60) == \
+            root.context.trace_id
+        assert rt.get(p.trace_id.remote(), timeout=60) != inside
+    finally:
+        os.environ.pop("RTPU_TRACING", None)
+        rt.shutdown()
+
+
+def test_tracing_off_submission_carries_nothing(monkeypatch):
+    monkeypatch.delenv("RTPU_TRACING", raising=False)
+    rt.init(num_cpus=1)
+    try:
+        from ray_tpu_torch.core import api
+
+        before = len(ptracing.get_finished_spans())
+        ref = traced_work.remote()
+        assert rt.get(ref, timeout=60) == ("", False)
+        assert "trace_ctx" not in api.runtime().producers.get(
+            ref.object_id).wire
+        assert len(ptracing.get_finished_spans()) == before
+        assert ptracing.current_span_context() is None
+    finally:
+        rt.shutdown()

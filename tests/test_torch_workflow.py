@@ -379,9 +379,14 @@ def test_stale_heartbeat_reads_resumable(tmp_path):
 
 def test_cancel_between_waves(both):
     """cancel() from another thread stops the run before its next wave:
-    CANCELED, the later step never started."""
-    import threading
+    CANCELED, the later step never started.
 
+    The first step's gate opens only once the run has ended, so each
+    executor reads the cancel at the top of a wave while that step is
+    still in flight. Opening it 0.2 s after the cancel raced the
+    executor's one-second wait in both packages: under a CPU hog either
+    side's step could finish inside the wait (SUCCESSFUL, step_finished
+    logged) or after it, and the records differed either way round."""
     got = {}
     for pkg, remote, wf, store in both:
         gate = os.path.join(store, "gate")
@@ -393,9 +398,11 @@ def test_cancel_between_waves(both):
             assert time.monotonic() < deadline
             time.sleep(0.02)
         wf.cancel("wcancel", storage=store)
-        threading.Timer(0.2, lambda g=gate: open(g, "w").close()).start()
-        with pytest.raises(Exception):
-            fut.result(timeout=30)
+        try:
+            with pytest.raises(Exception):
+                fut.result(timeout=30)
+        finally:
+            open(gate, "w").close()  # the step in flight ends now
         assert wf.get_status("wcancel", storage=store) == "CANCELED"
         got[pkg] = record(store, "wcancel")
     assert got["port"] == got["jax"]
